@@ -4,7 +4,9 @@ The PyTorch port of ``fhe_regex_tpu``, with the same public surface for the
 main path: ``gen_keys -> encrypt_str -> has_match -> decrypt``.  The result
 of ``has_match`` is an encrypted 0/1 only the client key opens.  Device
 work runs on the ``device`` given (default: CUDA when present, else CPU);
-on CUDA the blind rotation is the hand-written kernel of ``ops/pbs_cuda.py``.
+on CUDA the blind rotation is a hand-written kernel of ``ops/pbs_cuda.py``.
+Both torus widths run: 32 bits (``TPU_MESSAGE_2_CARRY_2``, the default) and
+64 bits (``TPU64_MESSAGE_2_CARRY_2``), where ciphertexts are uint64.
 """
 
 from __future__ import annotations
@@ -97,7 +99,7 @@ def executor_for(server_key: ServerKey, backend: Optional[str] = None,
 
     warn_if_unsafe(server_key.params, "executor_for")
     device = torch.device(device) if device is not None else _default_device()
-    backend = resolve_backend(backend, device)
+    backend = resolve_backend(backend, device, server_key.params)
     cache = server_key.__dict__.setdefault("_torch_executors", {})
     key = (backend, str(device))
     if key not in cache:
@@ -115,9 +117,11 @@ def has_match(server_key: ServerKey, ct_content: np.ndarray, pattern: str,
     """Encrypted match: does `pattern` match the encrypted content?
 
     Mirrors ``engine::has_match`` (engine.rs:8-42): returns a radix
-    ciphertext encrypting 1 (match) or 0 (no match).  ``backend`` selects
-    the blind rotation ('torch' plain path / 'cuda-fused' kernel / None =
-    the kernel on CUDA devices); ``fold='tree'`` replaces the reference's
+    ciphertext encrypting 1 (match) or 0 (no match), uint32 or uint64 by
+    the torus width.  ``backend`` selects the blind rotation ('torch' /
+    'torch64' plain paths, 'cuda-fused' / 'cuda64' / 'cuda64-bg' kernels,
+    None = the width's default kernel on CUDA devices, see
+    ``ops.pbs.resolve_backend``); ``fold='tree'`` replaces the reference's
     sequential OR fold with a log-depth tree (same decrypted result, far
     lower latency); ``branch_budget`` bounds variant expansion with a clean
     BranchBudgetExceeded.

@@ -25,7 +25,8 @@ def main(argv=None) -> int:
     ap.add_argument("content", help="plaintext content to encrypt and search")
     ap.add_argument("pattern", help="pattern, e.g. '/^ab?c$/i'")
     ap.add_argument("--params", default=None,
-                    help="parameter set name (default: TPU_MESSAGE_2_CARRY_2)")
+                    help="parameter set name (default: TPU_MESSAGE_2_CARRY_2; "
+                         "64-bit torus: TPU64_MESSAGE_2_CARRY_2)")
     ap.add_argument("--trivial", action="store_true",
                     help="use noiseless trivial content encryption (fast test path)")
     ap.add_argument("--fold", default="reference", choices=["reference", "tree"],
@@ -35,8 +36,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda if available, else cpu)")
     ap.add_argument("--backend", default=None, choices=list(BACKENDS),
-                    help="blind rotation (default: cuda-fused kernel on a "
-                         "CUDA device, torch otherwise)")
+                    help="blind rotation (default on a CUDA device: the "
+                         "cuda-fused kernel at 32 bits, cuda64-bg at 64; "
+                         "elsewhere torch / torch64)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(

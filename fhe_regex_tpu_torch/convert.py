@@ -1,8 +1,8 @@
 """Carry keys from the JAX package (``fhe_regex_tpu``) into this one.
 
 Both packages keep keys and ciphertexts as the same numpy arrays
-(ciphertexts: uint32 [len, num_blocks, n+1]), so a conversion checks the
-parameter set and copies arrays.  Only ``.params`` (its name and fields),
+(ciphertexts: uint32 [len, num_blocks, n+1], uint64 on a 64-bit torus), so
+a conversion checks the parameter set and copies arrays.  Only ``.params`` (its name and fields),
 the numpy arrays and the client key's generator seed are read, so this
 module needs no import of jax or of the JAX package.
 """
@@ -43,12 +43,20 @@ def client_key_from_jax(ck) -> ClientKey:
 
 def server_key_from_jax(sk) -> ServerKey:
     """JAX-package ServerKey -> this package's ServerKey (bsk
-    [n, (k+1)l, k+1, N] and ksk [kN, L, n+1], uint32)."""
+    [n, (k+1)l, k+1, N] and ksk [kN, L, n+1], uint32 on a 32-bit torus and
+    uint64 on a 64-bit one).  The arrays keep their bits: a key whose dtype
+    does not match ``params.torus_bits`` raises instead of being cast."""
     params = _params_of(sk.params)
     k1 = params.glwe_dimension + 1
     N, n, l = params.polynomial_size, params.lwe_dimension, params.pbs_level
-    bsk = np.array(sk.bsk, dtype=np.uint32, copy=True)
-    ksk = np.array(sk.ksk, dtype=np.uint32, copy=True)
+    dt = np.dtype(np.uint32 if params.torus_bits == 32 else np.uint64)
+    for name in ("bsk", "ksk"):
+        got = np.asarray(getattr(sk, name)).dtype
+        if got != dt:
+            raise ValueError(f"{name} is {got}, but {params.name} has a "
+                             f"{params.torus_bits}-bit torus ({dt})")
+    bsk = np.array(sk.bsk, copy=True)
+    ksk = np.array(sk.ksk, copy=True)
     if bsk.shape != (n, k1 * l, k1, N):
         raise ValueError(f"bsk shape {bsk.shape} does not fit {params.name}")
     if ksk.shape != (params.glwe_key_dim, params.ks_level, n + 1):

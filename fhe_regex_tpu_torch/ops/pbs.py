@@ -21,9 +21,18 @@ widened to int64 for shifts and sums (``wrap_i32`` narrows them back mod
 here: every partial sum stays below 2^53 (bounds at ``blind_rotate`` and
 ``key_switch``).  The same code runs on CPU and GPU.
 
-Two backends: ``torch`` is this plain path, on any device; ``cuda-fused``
-runs the blind rotation as the hand-written CUDA kernel of
-``ops/pbs_cuda.py`` and keeps the rest of the pipeline here.
+Backends, named after the JAX package's:
+
+  32-bit torus  ``torch``      this plain path, on any device (JAX ``jnp``)
+                ``cuda-fused`` the CUDA blind rotation of ``ops/pbs_cuda.py``
+                               (JAX ``pallas-fused``)
+  64-bit torus  ``torch64``    the plain path of ``ops/pbs64.py`` (``jnp64``)
+                ``cuda64``     the CUDA 64-bit blind rotation (``pallas64``)
+                ``cuda64-bg``  the same over batch blocks, on the key rounded
+                               by ``default_drop64`` (``pallas64-bg``)
+
+The CUDA backends run only the blind rotation as a kernel and keep the
+rest of the pipeline in PyTorch.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from fhe_regex_tpu_torch.ops import pbs64
 from fhe_regex_tpu_torch.params import Params
 
 I32 = torch.int32
@@ -194,49 +204,82 @@ def pbs_batch(params: Params, bsk: torch.Tensor, ksk_f64: torch.Tensor,
 # ---------------- backend selection ----------------
 
 
-BACKENDS = ("torch", "cuda-fused")
+BACKENDS32 = ("torch", "cuda-fused")
+BACKENDS64 = ("torch64", "cuda64", "cuda64-bg")
+BACKENDS = BACKENDS32 + BACKENDS64
+CUDA_BACKENDS = ("cuda-fused", "cuda64", "cuda64-bg")
 
 
 class DeviceServerKey:
     """Server-key material uploaded to one device.
 
-    ``bsk`` is the int32 bootstrap key [n, (k+1)l, k+1, N] (both backends
-    read it as is); ``ksk`` the float64 keyswitch matrix of ``prepare_ksk``.
+    ``bsk`` is the bootstrap key [n, (k+1)l, k+1, N], int32 at 32 bits and
+    int64 at 64 bits (for ``cuda64-bg`` rounded by ``drop64``, see
+    ``pbs64.round_bsk64``); ``ksk`` the float64 keyswitch matrix of
+    ``prepare_ksk`` / ``pbs64.prepare_ksk64``.
     """
 
     def __init__(self, params: Params, backend: str, device: torch.device,
-                 bsk: torch.Tensor, ksk: torch.Tensor):
+                 bsk: torch.Tensor, ksk: torch.Tensor,
+                 drop64: tuple = (0, 0)):
         self.params = params
         self.backend = backend
         self.device = device
         self.bsk = bsk
         self.ksk = ksk
+        self.drop64 = drop64
 
 
 def resolve_backend(backend: Optional[str],
-                    device: "torch.device | str") -> str:
-    """None -> ``cuda-fused`` on a CUDA device, ``torch`` elsewhere."""
+                    device: "torch.device | str",
+                    params: Optional[Params] = None) -> str:
+    """None -> the kernel backend on a CUDA device (``cuda64-bg`` at 64
+    bits, ``cuda-fused`` at 32), the plain one elsewhere.  With ``params``,
+    a backend of the other torus width raises ValueError."""
+    wide = params is not None and params.torus_bits == 64
     if backend is None:
-        return "cuda-fused" if torch.device(device).type == "cuda" else "torch"
+        on_cuda = torch.device(device).type == "cuda"
+        if wide:
+            return "cuda64-bg" if on_cuda else "torch64"
+        return "cuda-fused" if on_cuda else "torch"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
+    if params is not None and wide != (backend in BACKENDS64):
+        raise ValueError(f"backend {backend!r} needs a "
+                         f"{64 if backend in BACKENDS64 else 32}-bit "
+                         f"parameter set, not {params.name}")
     return backend
 
 
 def prepare_server_key(params: Params, server_key,
                        device: "torch.device | str" = "cpu",
                        backend: Optional[str] = None) -> DeviceServerKey:
-    if params.torus_bits != 32:
-        raise ValueError("the PyTorch port supports 32-bit torus sets only")
     device = torch.device(device)
-    backend = resolve_backend(backend, device)
-    if backend == "cuda-fused" and device.type != "cuda":
-        raise ValueError("backend 'cuda-fused' needs a CUDA device")
-    bsk = torch.from_numpy(
-        np.ascontiguousarray(server_key.bsk).view(np.int32)).to(device)
-    ksk = torch.from_numpy(
-        np.ascontiguousarray(server_key.ksk).view(np.int32)).to(device)
-    return DeviceServerKey(params, backend, device, bsk, prepare_ksk(ksk))
+    backend = resolve_backend(backend, device, params)
+    if backend in CUDA_BACKENDS and device.type != "cuda":
+        raise ValueError(f"backend {backend!r} needs a CUDA device")
+    want = np.uint32 if params.torus_bits == 32 else np.uint64
+    for name in ("bsk", "ksk"):
+        got = np.asarray(getattr(server_key, name)).dtype
+        if got != want:
+            raise TypeError(f"{name} is {got}, expected {np.dtype(want)} "
+                            f"for {params.name}")
+    if params.torus_bits == 32:
+        bsk = torch.from_numpy(
+            np.ascontiguousarray(server_key.bsk).view(np.int32)).to(device)
+        ksk = torch.from_numpy(
+            np.ascontiguousarray(server_key.ksk).view(np.int32)).to(device)
+        return DeviceServerKey(params, backend, device, bsk, prepare_ksk(ksk))
+    drop = (0, 0)
+    bsk = server_key.bsk
+    if backend == "cuda64-bg":
+        drop = pbs64.default_drop64(params)
+        pbs64._gate_drop64(params, drop)
+        bsk = pbs64.round_bsk64(params, bsk, drop)
+    return DeviceServerKey(
+        params, backend, device, pbs64.to_torch64(bsk).to(device),
+        pbs64.prepare_ksk64(pbs64.to_torch64(server_key.ksk).to(device)),
+        tuple(drop))
 
 
 def make_pbs_core(dev_key: DeviceServerKey):
@@ -255,5 +298,21 @@ def make_pbs_core(dev_key: DeviceServerKey):
             acc = blind_rotate_fused(params, dev_key.bsk, luts, lut_idx, ms)
             return key_switch(params, dev_key.ksk,
                               sample_extract(params, acc))
+        return core
+    if dev_key.backend == "torch64":
+        def core(luts, lut_idx, cts):
+            return pbs64.pbs_batch64(params, dev_key.bsk, dev_key.ksk, luts,
+                                     lut_idx, cts)
+        return core
+    if dev_key.backend in ("cuda64", "cuda64-bg"):
+        from fhe_regex_tpu_torch.ops import pbs_cuda
+        rotate = (pbs_cuda.blind_rotate_fused64 if dev_key.backend == "cuda64"
+                  else pbs_cuda.blind_rotate_fused64_bg)
+
+        def core(luts, lut_idx, cts):
+            ms = pbs64.mod_switch64(params, cts)
+            acc = rotate(params, dev_key.bsk, luts, lut_idx, ms)
+            return pbs64.key_switch64(params, dev_key.ksk,
+                                      pbs64.sample_extract64(params, acc))
         return core
     raise ValueError(dev_key.backend)

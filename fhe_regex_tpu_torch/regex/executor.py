@@ -12,6 +12,9 @@ inputs are ready.  Each level executes:
 (same buckets, same slot numbering), so slabs compare level by level.
 Level batch widths are padded to power-of-two buckets; padded instances
 write to a trash slot.
+
+The slab holds torus values as int32 bits at 32 bits and int64 bits at 64
+bits; ciphertexts cross the API as uint32 / uint64 numpy arrays.
 """
 
 from __future__ import annotations
@@ -174,14 +177,26 @@ class Executor:
         self.device = dev_key.device
         self._core = make_pbs_core(dev_key)
         self.last_run_stats: List[dict] = []
+        wide = params.torus_bits == 64
+        self._dtype = I64 if wide else torch.int32
+        self._np_u = np.uint64 if wide else U32       # the bits at the API
+        self._np_s = np.int64 if wide else np.int32   # the same, as tensors
+
+    def _affine_combine(self, gathered, in_coefs, consts):
+        """sum_k coef_k * slab[slot_k] + const * delta over [W, 3, n+1].
+
+        One int64 expression at both widths: int64 products and sums wrap
+        mod 2^64, which is the 64-bit torus itself, and narrow to the
+        32-bit torus with ``wrap_i32``."""
+        x = (in_coefs[:, :, None].to(I64) * gathered.to(I64)).sum(dim=1)
+        x[:, -1] += consts.to(I64) * self.params.delta
+        return x if self.params.torus_bits == 64 else wrap_i32(x)
 
     def _run_level(self, slab, luts, in_slots, in_coefs, consts, lut_idx,
                    out_idx) -> None:
         """One level, updating ``slab`` in place."""
-        gathered = slab[in_slots].to(I64)                  # [W, 3, n+1]
-        x = (in_coefs[:, :, None].to(I64) * gathered).sum(dim=1)
-        x[:, -1] += consts.to(I64) * self.params.delta
-        outs = self._core(luts, lut_idx.clamp(min=0), wrap_i32(x))
+        x = self._affine_combine(slab[in_slots], in_coefs, consts)
+        outs = self._core(luts, lut_idx.clamp(min=0), x)
         # padded rows all write the trash slot; which duplicate lands there
         # is unspecified on CUDA, and the trash slot is never read
         slab[out_idx] = outs
@@ -195,7 +210,7 @@ class Executor:
             def dev(a, dtype=torch.int32):
                 return torch.from_numpy(np.ascontiguousarray(a)).to(
                     self.device, dtype)
-            luts = dev(circuit.luts.view(np.int32))
+            luts = dev(circuit.luts.view(self._np_s), self._dtype)
             # slot indices are int64, the index type of torch's gathers
             levels = [(dev(lv.in_slots, I64), dev(lv.in_coefs),
                        dev(lv.consts), dev(lv.lut_idx), dev(lv.out_idx, I64))
@@ -205,18 +220,20 @@ class Executor:
 
     def run(self, circuit: CompiledCircuit, content_blocks: np.ndarray,
             profile: bool = False) -> np.ndarray:
-        """content_blocks: [len, num_blocks, n+1] uint32 -> radix result
-        [num_blocks, n+1] uint32 ([R, num_blocks, n+1] for R roots).
+        """content_blocks: [len, num_blocks, n+1] uint32 (uint64 at 64
+        bits) -> radix result [num_blocks, n+1] of the same type
+        ([R, num_blocks, n+1] for R roots).
 
         With profile=True each level is synchronized and timed; per-level
         stats land in ``self.last_run_stats``."""
         n1 = self.params.lwe_dimension + 1
-        slab = torch.zeros((circuit.num_slots, n1), dtype=torch.int32,
+        slab = torch.zeros((circuit.num_slots, n1), dtype=self._dtype,
                            device=self.device)
         if content_blocks.size:
-            flat = np.ascontiguousarray(content_blocks.reshape(-1, n1))
+            flat = np.ascontiguousarray(content_blocks.reshape(-1, n1),
+                                        dtype=self._np_u)
             slab[1:1 + flat.shape[0]] = torch.from_numpy(
-                flat.view(np.int32)).to(self.device)
+                flat.view(self._np_s)).to(self.device)
         luts, levels = self._device_plan(circuit)
         stats = []
         for lv, dev in zip(circuit.levels, levels):
@@ -246,7 +263,7 @@ class Executor:
             if val.sign == 0:
                 outs.append(_assemble_root(params, val, None))
             else:
-                ct_u = rows[ri].view(U32)
+                ct_u = rows[ri].view(self._np_u)
                 ri += 1
                 outs.append(_assemble_root(params, val, ct_u))
         return outs[0] if circuit.roots is None else np.stack(outs)

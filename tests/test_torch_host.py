@@ -77,6 +77,9 @@ def test_port_runs_without_jax(tmp_path):
         "ck, sk = gen_keys(get_params('TEST_PARAMS'), seed=3)\n"
         "res = has_match(sk, encrypt_str(ck, 'xaby'), '/ab/', device='cpu')\n"
         "assert decrypt(ck, res) == 1\n"
+        "ck, sk = gen_keys(get_params('TEST_PARAMS_64'), seed=3)\n"
+        "res = has_match(sk, encrypt_str(ck, 'xaby'), '/ab/', device='cpu')\n"
+        "assert res.dtype.name == 'uint64' and decrypt(ck, res) == 1\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'fhe_regex_tpu'\n"
         "             or m.startswith('fhe_regex_tpu.'))\n"
