@@ -1,0 +1,122 @@
+#!/usr/bin/env python3
+"""Device idle share of the PyTorch port's serving paths on the card.
+
+    python3 chip_profile.py
+
+Needs one CUDA device; reuses the keys that ``chip_smoke.py`` caches in
+``.cache/`` (makes them otherwise).  Two runs, each once warm and then
+once under ``torch.profiler``:
+
+1. ``exact_literal`` of ``chip_smoke.REQUESTS`` through ``has_match`` on
+   the per-step backend ``cuda`` (two launches per CMUX step, enqueued
+   from Python);
+2. ``has_match_many`` on the configuration of ``benchmarks/serving.py``
+   (32 contents of 16 characters, ``/abc/``) on ``cuda-bg``.
+
+For each it prints the wall time of the profiled call, the device's busy
+time (the union of its kernel and copy intervals), the idle share
+1 - busy / wall, and the device time by kernel name.  The profiler's own
+cost lengthens the wall time a little, so the idle share is an upper
+bound.  The last line is a JSON object with these numbers.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+
+import numpy as np
+import torch
+
+
+def busy_us(events) -> float:
+    """Length of the union of the events' [start, end) intervals (us)."""
+    total, end = 0.0, None
+    for s, e in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in events):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def profiled(label: str, fn) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()                                   # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        raise SystemExit(f"chip_profile: {label}: the profiler recorded no "
+                         f"device events")
+    busy = busy_us(dev) / 1e6
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in dev:
+        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+        by_name[e.name][1] += 1
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"{label}: wall {wall:.3f} s, device busy {busy:.3f} s, idle "
+          f"share {1 - busy / wall:.3f}", flush=True)
+    for name, (ms, count) in top:
+        print(f"  {name[:60]:60s} {ms:10.1f} ms  {count:6d} launches",
+              flush=True)
+    return {"label": label, "wall_s": wall, "busy_s": busy,
+            "idle_share": 1 - busy / wall,
+            "top": [[n, ms, c] for n, (ms, c) in top]}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile: no CUDA device; this script runs "
+                         "only on the card")
+    import chip_smoke as smoke
+    import fhe_regex_tpu_torch as port
+    from fhe_regex_tpu_torch.params import get_params
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    params = get_params(smoke.FULL)
+    ck, sk, _ = smoke._keys(params)
+    name, pattern, content, bit = smoke.REQUESTS[0]
+    ct = port.encrypt_str(ck, content)
+    runs = []
+
+    def literal():
+        res = port.has_match(sk, ct, pattern, fold="tree",
+                             device=smoke.DEVICE, backend="cuda")
+        if port.decrypt(ck, res) != bit:
+            raise AssertionError(f"{name}: wrong bit on cuda")
+
+    runs.append(profiled(f"has_match {name} on cuda", literal))
+    cts = np.stack([port.encrypt_str(ck, c) for c in smoke.SERVE])
+    want = [1 - i % 2 for i in range(len(smoke.SERVE))]
+
+    def serve():
+        res = port.has_match_many(sk, cts, smoke.SERVE_PATTERN,
+                                  backend="cuda-bg", device=smoke.DEVICE)
+        if [port.decrypt(ck, r) for r in res] != want:
+            raise AssertionError("has_match_many: wrong bits on cuda-bg")
+
+    runs.append(profiled(f"has_match_many C={len(cts)} on cuda-bg", serve))
+    print(json.dumps({"device": smi, "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -27,11 +27,37 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    bit for bit against ``torch64`` on the card, and one small request
    against the CPU;
 7. 64-bit throughput: one decrypt-checked PBS batch at B = 256 on
-   ``cuda64-bg``.
+   ``cuda64-bg``;
+8. the per-step kernels (backend ``cuda``) vs plain at TPU_MESSAGE_2_CARRY_2,
+   B = 8 and 256, tolerance zero: one ``stage1_digits`` and one
+   ``external_product_step`` launch, each timed with CUDA events beside its
+   plain version and, for the external product, beside one float64
+   ``torch.matmul`` with the Toeplitz matrix prebuilt (the library call that
+   computes the same product); then a whole ``blind_rotate_steps`` rotation
+   at B = 8 and 256, bit-equal to ``blind_rotate_fused``;
+9. the batch-grid kernel (``cuda-bg``): B = 256 in one block and in two
+   (tb = 256, 128), equal to ``cuda-fused``; B = 1024 at the default tb,
+   bit-equal to the plain rotation, timed beside ``cuda-fused``;
+10. the serving path at TPU_MESSAGE_2_CARRY_2: ``has_match_many`` on the
+   configuration of ``benchmarks/serving.py`` (32 contents of 16
+   characters, ``/abc/``, the odd ones not matching) on ``cuda-bg`` cold
+   and warm and on ``cuda-fused`` once, equal ciphertexts, every bit
+   decrypted; then ``has_match_many_patterns``, ``has_match_many_positions``,
+   ``has_match_long`` (256 characters, five windows) and ``count_matches``
+   on the default backend, each decrypt-checked; then one request through
+   ``has_match(backend="cuda")``, equal to its ``cuda-fused`` result;
+11. 64-bit serving: ``has_match_many`` at TPU64_MESSAGE_2_CARRY_2 on
+   ``cuda64-bg``, 8 contents, decrypt-checked.
 
 Before each main path every launch count is set to 0; just after, the
 path's kernel must show launches.  Any failure raises.  The line before
-the last is a JSON object describing each kernel; the last line is
+the last is a JSON object describing each kernel: its launches on its main
+path, its largest difference from the plain version, its time and the
+plain version's (and the library call's, where one computes the same
+function) at one shape of the run, and the least time the card could take
+for that work (``bound_ms``: the int8 tensor-core operations of the limb
+formulation at 1,979 TOP/s, or the bytes at 3.35 TB/s, whichever is
+larger; the H100 SXM data sheet's peaks).  The last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -54,6 +80,14 @@ FULL = "TPU_MESSAGE_2_CARRY_2"
 SMALL = "TEST_PARAMS_NOISY"
 FULL64 = "TPU64_MESSAGE_2_CARRY_2"
 SMALL64 = "TEST_PARAMS_64"
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor cores
+
+# benchmarks/serving.py: 32 contents of 16 characters, the odd ones with a
+# 'q' where the match needs its 'b'
+SERVE_PATTERN = "/abc/"
+SERVE = ["xxxxxabcxxxxxxxx" if i % 2 == 0 else "xxxxxaqcxxxxxxxx"
+         for i in range(32)]
 
 # the five benchmark configurations of fhe_regex_tpu/models/patterns.py
 # (contents and expected bits from benchmarks/e2e.py) plus the north star
@@ -157,17 +191,71 @@ def kernel_vs_plain(label, params, kernel, plain, bsk, x, timed):
     return err, k_s, p_s
 
 
+def _event_ms(fn, samples: int = 3) -> list:
+    """Device times (ms) of `samples` calls of fn after one warm call,
+    each between two CUDA events."""
+    fn()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def _bound(ops: float, nbytes: float):
+    """(least ms for the work, what sets it) at the card's peaks."""
+    t_ops, t_bytes = ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def limb_pairs(params, drop=(0, 0)) -> float:
+    """int8 limb products per multiply-add of the limb formulation: four
+    key limbs at 32 bits; at 64 bits each (digit limb, key limb) pair of
+    weight below 2^64, without the key limbs a drop zeroes, averaged over
+    the mask and body columns."""
+    if params.torus_bits == 32:
+        return 4.0
+    nd = -(-(params.pbs_base_log + 1) // 8)          # digit limbs
+    k = params.glwe_dimension
+    per_c = [sum(1 for dl in range(nd)
+                 for j in range(drop[0] if c < k else drop[1], 8)
+                 if dl + j < 8) for c in range(k + 1)]
+    return sum(per_c) / len(per_c)
+
+
+def rotation_bound(params, B: int, L: int, drop=(0, 0)):
+    """Bound of one blind rotation of B instances with L LUTs: n steps of
+    B x rows x (k+1) x N^2 multiply-adds; the key, inputs and output each
+    moved once."""
+    k1, N = params.glwe_dimension + 1, params.polynomial_size
+    n, rows = params.lwe_dimension, k1 * params.pbs_level
+    word = params.torus_bits // 8
+    macs = B * n * rows * k1 * N * N
+    nbytes = (n * rows * k1 * N * word + B * (n + 2) * 4 + L * N * word
+              + B * k1 * N * word)
+    return _bound(2 * macs * limb_pairs(params, drop), nbytes)
+
+
 def _reset_counts(pbs_cuda) -> None:
-    for k in (pbs_cuda.blind_rotate_fused, pbs_cuda.blind_rotate_fused64,
+    for k in (pbs_cuda.blind_rotate_fused, pbs_cuda.blind_rotate_fused_bg,
+              pbs_cuda.stage1_digits, pbs_cuda.external_product_step,
+              pbs_cuda.blind_rotate_fused64,
               pbs_cuda.blind_rotate_fused64_bg):
         k.launches = 0
 
 
 def main_path(port, pbs_cuda, params, ck, sk, kernel, requests,
-              backend=None):
+              backend=None, warm=True):
     """The requests through ``has_match`` on the card, each decrypting to
-    its expected bit, cold and warm; every launch count is 0 just before.
-    Returns (launches of ``kernel`` in this run, {name: (ct, result)})."""
+    its expected bit, cold and (with ``warm``) warm; every launch count is
+    0 just before.  Returns (launches of ``kernel`` in this run,
+    {name: (ct, result)})."""
     from fhe_regex_tpu_torch.regex.engine import compile_match
     from fhe_regex_tpu_torch.regex.executor import compile_circuit
 
@@ -181,12 +269,16 @@ def main_path(port, pbs_cuda, params, ck, sk, kernel, requests,
         res, cold = _timed(lambda: port.has_match(
             sk, ct, pattern, fold="tree", device=DEVICE, backend=backend))
         launches = kernel.launches - before
-        res2, warm = _timed(lambda: port.has_match(
-            sk, ct, pattern, fold="tree", device=DEVICE, backend=backend))
+        res2, warm_s = res, None
+        if warm:
+            res2, warm_s = _timed(lambda: port.has_match(
+                sk, ct, pattern, fold="tree", device=DEVICE,
+                backend=backend))
         got, got2 = port.decrypt(ck, res), port.decrypt(ck, res2)
         print(f"request {params.name} {name}: {len(content)} chars, "
               f"{circuit.pbs_count} bootstraps in {len(circuit.levels)} "
-              f"levels, cold {cold:.3f} s, warm {warm:.3f} s, "
+              f"levels, cold {cold:.3f} s, warm "
+              f"{'not run' if warm_s is None else f'{warm_s:.3f} s'}, "
               f"{kernel.__name__} launches {launches}, result {got} "
               f"(want {want})", flush=True)
         if (got, got2) != (want, want):
@@ -231,6 +323,217 @@ def same_on_cpu(port, params, ck, sk):
         raise AssertionError(f"{params.name}: card and CPU results differ")
 
 
+def step_kernels(params, bsk, pbs_cuda, plain):
+    """Phase 8, first half: one launch each of #2 (``stage1_digits``) and
+    #1 (``external_product_step``) against the plain versions on the same
+    card inputs, tolerance zero, at B = 8 and 256, with their times (CUDA
+    events, 3 samples) and the float64 matmul's.  Returns {B: numbers}."""
+    k1, N = params.glwe_dimension + 1, params.polynomial_size
+    rows = k1 * params.pbs_level
+    out = {}
+    for B in (8, 256):
+        rng = np.random.default_rng(300 + B)
+        acc = torch.from_numpy(rng.integers(-2**31, 2**31, size=(B, k1, N))
+                               .astype(np.int32)).to(DEVICE)
+        a = torch.from_numpy(rng.integers(0, 2 * N, size=B)
+                             .astype(np.int32)).to(DEVICE)
+        d = pbs_cuda.stage1_digits(params, acc, a)
+        d_plain = plain.stage1_digits(params, acc, a)
+        s1_err = int((d.to(torch.int32) - d_plain.to(torch.int32)).abs()
+                     .max())
+        if d.shape != (B, rows, N) or not torch.equal(d, d_plain):
+            raise AssertionError(f"stage1_digits B={B}: kernel != plain "
+                                 f"(max |diff| {s1_err})")
+        before = acc.clone()
+        got = pbs_cuda.external_product_step(params, d, bsk[0], acc)
+        want = plain.external_product_step(params, d, bsk[0], acc)
+        ep_err = _max_abs_err(got, want)
+        if not torch.equal(got, want) or not torch.equal(acc, before):
+            raise AssertionError(f"external_product_step B={B}: kernel != "
+                                 f"plain (max |diff| {ep_err}) or acc "
+                                 f"changed")
+        W = plain._ext_product_matrix(bsk[0])
+        df = d.reshape(B, rows * N).to(torch.float64)
+        lib = plain.wrap_i32(acc.to(torch.int64) + torch.matmul(df, W)
+                             .to(torch.int64).reshape(B, k1, N))
+        if not torch.equal(lib, want):
+            raise AssertionError("the float64 matmul does not compute #1")
+        t = dict(
+            s1=_event_ms(lambda: pbs_cuda.stage1_digits(params, acc, a)),
+            s1_plain=_event_ms(lambda: plain.stage1_digits(params, acc, a)),
+            ep=_event_ms(lambda: pbs_cuda.external_product_step(
+                params, d, bsk[0], acc)),
+            ep_plain=_event_ms(lambda: plain.external_product_step(
+                params, d, bsk[0], acc)),
+            ep_lib=_event_ms(lambda: torch.matmul(df, W)))
+        print(f"step kernels {params.name} B={B}: stage1_digits and "
+              f"external_product_step equal plain; ms per launch (3 "
+              f"samples): stage1 {_fmt(t['s1'])}, plain "
+              f"{_fmt(t['s1_plain'])}; external product {_fmt(t['ep'])}, "
+              f"plain {_fmt(t['ep_plain'])}, float64 matmul "
+              f"{_fmt(t['ep_lib'])}", flush=True)
+        out[B] = {k: float(np.median(v)) for k, v in t.items()}
+        out[B].update(s1_err=s1_err, ep_err=ep_err)
+    return out
+
+
+def _fmt(ms) -> str:
+    return " / ".join(f"{t:.4f}" for t in ms)
+
+
+def steps_vs_fused(params, ck, bsk, pbs_cuda):
+    """Phase 8, second half: the whole ``cuda`` rotation (2n launches from
+    Python) equals ``cuda-fused`` bit for bit.  Returns {B: seconds}."""
+    out = {}
+    for B in (8, 256):
+        x = _rotation_inputs(params, ck, B, seed=400 + B)
+        args = (params, bsk, x["luts"], x["lut_idx"], x["ms"])
+        got, steps_s = _timed(lambda: pbs_cuda.blind_rotate_steps(*args))
+        want, fused_s = _timed(lambda: pbs_cuda.blind_rotate_fused(*args))
+        if not torch.equal(got, want):
+            raise AssertionError(f"blind_rotate_steps B={B} != "
+                                 f"blind_rotate_fused")
+        print(f"blind_rotate_steps {params.name} B={B}: equal to "
+              f"cuda-fused; {steps_s * 1e3:.3f} ms (cuda-fused "
+              f"{fused_s * 1e3:.3f} ms)", flush=True)
+        out[B] = steps_s
+    return out
+
+
+def batch_grid(params, ck, bsk, pbs_cuda, blind_rotate):
+    """Phase 9: #4 in one block and in two at B = 256, equal to
+    ``cuda-fused``; at B = 1024 and the default tb, bit-equal to the plain
+    rotation, timed beside ``cuda-fused``.  Returns the B = 1024 numbers."""
+    bg = pbs_cuda.blind_rotate_fused_bg
+    x = _rotation_inputs(params, ck, 256, seed=456)
+    args = (params, bsk, x["luts"], x["lut_idx"], x["ms"])
+    one, one_s = _timed(lambda: bg(*args, tb=256))
+    two, two_s = _timed(lambda: bg(*args, tb=128))
+    fused = pbs_cuda.blind_rotate_fused(*args)
+    if not (torch.equal(one, two) and torch.equal(one, fused)):
+        raise AssertionError("blind_rotate_fused_bg B=256: tb=256, tb=128 "
+                             "and cuda-fused differ")
+    print(f"blind_rotate_fused_bg B=256: tb=256 {one_s * 1e3:.3f} ms, "
+          f"tb=128 {two_s * 1e3:.3f} ms, equal to cuda-fused", flush=True)
+    B = 1024
+    x = _rotation_inputs(params, ck, B, seed=1024)
+    args = (params, bsk, x["luts"], x["lut_idx"], x["ms"])
+    got, bg_s = _timed(lambda: bg(*args))
+    fused, fused_s = _timed(lambda: pbs_cuda.blind_rotate_fused(*args))
+    want, plain_s = _timed(lambda: blind_rotate(*args))
+    err = _max_abs_err(got, want)
+    if not (torch.equal(got, want) and torch.equal(fused, want)):
+        raise AssertionError(f"blind_rotate_fused_bg B={B}: kernel != plain "
+                             f"(max |diff| {err})")
+    tb = pbs_cuda._bg_block(B, pbs_cuda.BG_CAP)
+    print(f"blind_rotate_fused_bg {params.name} B={B} tb={tb}: equal to "
+          f"plain; {bg_s * 1e3:.3f} ms (cuda-fused {fused_s * 1e3:.3f} ms, "
+          f"plain {plain_s * 1e3:.3f} ms)", flush=True)
+    return dict(err=err, B=B, L=x["luts"].shape[0], ms=bg_s * 1e3,
+                plain_ms=plain_s * 1e3, fused_ms=fused_s * 1e3)
+
+
+def _want_bits(got, want, what):
+    if got != want:
+        raise AssertionError(f"{what}: decrypted {got}, want {want}")
+
+
+def serving(port, pbs_cuda, params, ck, sk, literal):
+    """Phase 10: the packed serving paths at the 32-bit production set;
+    ``literal`` is (name, pattern, content, bit, ciphertext, cuda-fused
+    result) of one request of phase 3.  Returns the launches of #4, #2 and
+    #1 on their main paths."""
+    C = len(SERVE)
+    cts = np.stack([port.encrypt_str(ck, c) for c in SERVE])
+    want = [1 - i % 2 for i in range(C)]
+    _reset_counts(pbs_cuda)
+    res, cold = _timed(lambda: port.has_match_many(
+        sk, cts, SERVE_PATTERN, backend="cuda-bg", device=DEVICE))
+    bg_launches = pbs_cuda.blind_rotate_fused_bg.launches
+    res2, warm = _timed(lambda: port.has_match_many(
+        sk, cts, SERVE_PATTERN, backend="cuda-bg", device=DEVICE))
+    res3, fused_s = _timed(lambda: port.has_match_many(
+        sk, cts, SERVE_PATTERN, backend="cuda-fused", device=DEVICE))
+    for r in (res, res2, res3):
+        _want_bits([port.decrypt(ck, x) for x in r], want, "has_match_many")
+    if not (np.array_equal(res, res2) and np.array_equal(res, res3)):
+        raise AssertionError("has_match_many: cuda-bg and cuda-fused "
+                             "ciphertexts differ")
+    if bg_launches <= 0:
+        raise AssertionError("has_match_many: blind_rotate_fused_bg was not "
+                             "launched")
+    print(f"serving {params.name}: has_match_many C={C} x "
+          f"{len(SERVE[0])} chars {SERVE_PATTERN}: cuda-bg cold "
+          f"{cold:.3f} s, warm {warm:.3f} s ({C / warm:.2f} contents/s), "
+          f"cuda-fused {fused_s:.3f} s ({C / fused_s:.2f} contents/s); "
+          f"blind_rotate_fused_bg launches {bg_launches}; all {C} bits "
+          f"right, ciphertexts equal", flush=True)
+
+    four = cts[:4]
+    pats = ["/abc/", "/aqc/", "/^x{5}a/"]
+    r, secs = _timed(lambda: port.has_match_many_patterns(
+        sk, four, pats, device=DEVICE))
+    _want_bits([[port.decrypt(ck, x) for x in row] for row in r],
+               [[1, 0, 1], [0, 1, 1], [1, 0, 1], [0, 1, 1]],
+               "has_match_many_patterns")
+    print(f"has_match_many_patterns C=4 x {pats}: {secs:.3f} s, right",
+          flush=True)
+    r, secs = _timed(lambda: port.has_match_many_positions(
+        sk, four, SERVE_PATTERN, device=DEVICE))
+    _want_bits([[port.decrypt(ck, x) for x in row] for row in r],
+               [[int(j == 5 and i % 2 == 0) for j in range(16)]
+                for i in range(4)], "has_match_many_positions")
+    print(f"has_match_many_positions C=4: {secs:.3f} s, right", flush=True)
+    long_ct = port.encrypt_str(ck, "x" * 200 + "abc" + "x" * 53)
+    r, secs = _timed(lambda: port.has_match_long(
+        sk, long_ct, SERVE_PATTERN, device=DEVICE))
+    _want_bits(port.decrypt(ck, r), 1, "has_match_long")
+    print(f"has_match_long 256 chars (5 windows of 64): {secs:.3f} s, "
+          f"right", flush=True)
+    ct = port.encrypt_str(ck, "xxabcxxabcxxxabc")
+    r, secs = _timed(lambda: port.count_matches(sk, ct, SERVE_PATTERN,
+                                                device=DEVICE))
+    _want_bits(port.decrypt_count(ck, r), 3, "count_matches")
+    print(f"count_matches 16 chars: {secs:.3f} s, count 3 right", flush=True)
+
+    # kernels #2 and #1's path: one request through the per-step backend
+    name, pattern, _, bit, ct, fused = literal
+    _reset_counts(pbs_cuda)
+    r, secs = _timed(lambda: port.has_match(sk, ct, pattern, fold="tree",
+                                            device=DEVICE, backend="cuda"))
+    s1 = pbs_cuda.stage1_digits.launches
+    ep = pbs_cuda.external_product_step.launches
+    _want_bits(port.decrypt(ck, r), bit, name)
+    if not np.array_equal(r, fused):
+        raise AssertionError(f"{name}: cuda and cuda-fused results differ")
+    if s1 <= 0 or ep <= 0:
+        raise AssertionError(f"{name}: the per-step kernels were not "
+                             f"launched ({s1}, {ep})")
+    print(f"request {params.name} {name} on cuda: {secs:.3f} s, equal to "
+          f"cuda-fused; stage1_digits launches {s1}, external_product_step "
+          f"launches {ep}", flush=True)
+    return bg_launches, s1, ep
+
+
+def serving64(port, pbs_cuda, params, ck, sk):
+    """Phase 11: has_match_many at the 64-bit production set on the default
+    backend (``cuda64-bg``), 8 contents, decrypt-checked."""
+    C = 8
+    cts = np.stack([port.encrypt_str(ck, c) for c in SERVE[:C]])
+    _reset_counts(pbs_cuda)
+    res, secs = _timed(lambda: port.has_match_many(sk, cts, SERVE_PATTERN,
+                                                   device=DEVICE))
+    launches = pbs_cuda.blind_rotate_fused64_bg.launches
+    _want_bits([port.decrypt(ck, x) for x in res],
+               [1 - i % 2 for i in range(C)], "has_match_many 64-bit")
+    if res.dtype != np.uint64 or launches <= 0:
+        raise AssertionError(f"has_match_many 64-bit: dtype {res.dtype}, "
+                             f"blind_rotate_fused64_bg launches {launches}")
+    print(f"serving {params.name}: has_match_many C={C} on cuda64-bg "
+          f"{secs:.3f} s ({C / secs:.2f} contents/s), "
+          f"blind_rotate_fused64_bg launches {launches}, right", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -241,6 +544,7 @@ def main() -> int:
     if ROOT not in Path(port.__file__).resolve().parents:
         raise SystemExit(f"chip_smoke: imported {port.__file__}, not the "
                          f"package beside this script")
+    from fhe_regex_tpu_torch.ops import pbs as plain
     from fhe_regex_tpu_torch.ops import pbs_cuda
     from fhe_regex_tpu_torch.ops.pbs import blind_rotate, prepare_server_key
     from fhe_regex_tpu_torch.ops.pbs64 import blind_rotate64
@@ -350,7 +654,7 @@ def main() -> int:
     # ---- phase 6: the 64-bit main path, six requests on cuda64-bg ----
     main64_bg, results64 = main_path(port, pbs_cuda, full64, ck64, sk64,
                                      pbs_cuda.blind_rotate_fused64_bg,
-                                     REQUESTS)
+                                     REQUESTS, warm=False)
     # kernel #5's path: one request through has_match on cuda64, bit for
     # bit against the plain backend on the card
     main64, res_cuda64 = main_path(port, pbs_cuda, full64, ck64, sk64,
@@ -369,22 +673,63 @@ def main() -> int:
     # ---- phase 7: 64-bit throughput ----
     throughput(full64, ck64, sk64, "cuda64-bg")
 
-    def entry(name, source, replaces, launches, err, t):
+    # ---- phase 8: the per-step kernels #2 and #1 against plain ----
+    steps = step_kernels(full, dk.bsk, pbs_cuda, plain)
+    steps_vs_fused(full, ck, dk.bsk, pbs_cuda)
+
+    # ---- phase 9: the batch-grid kernel #4 against plain ----
+    bg = batch_grid(full, ck, dk.bsk, pbs_cuda, blind_rotate)
+
+    # ---- phase 10: the serving path, 32 bits ----
+    name, pattern, content, bit = REQUESTS[0]
+    bg_launches, s1_launches, ep_launches = serving(
+        port, pbs_cuda, full, ck, sk,
+        (name, pattern, content, bit) + results[name])
+
+    # ---- phase 11: the serving path, 64 bits ----
+    serving64(port, pbs_cuda, full64, ck64, sk64)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
+              library_ms=None):
         return {"name": name, "route": "cuda",
                 "source": f"fhe_regex_tpu_torch/csrc/{source}",
                 "replaces": f"fhe_regex_tpu/ops/pbs_pallas.py:{replaces}",
-                "launches": launches, "max_abs_err": err,
-                "ms": t[256][0] * 1e3, "plain_ms": t[256][1] * 1e3}
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound[0],
+                "bound_by": bound[1], "library_ms": library_ms}
 
-    print(f"chip_smoke {time.perf_counter() - t_start:.1f} s", flush=True)
-    print(json.dumps({"kernels": [
+    k1, N = full.glwe_dimension + 1, full.polynomial_size
+    rows = k1 * full.pbs_level
+    B = 256
+    L = 2                                  # LUTs of _rotation_inputs
+    step_macs = B * rows * k1 * N * N
+    drop = dk64_bg.drop64
+    kernels = [
+        entry("external_product_step", "blind_rotate.cu", 114, ep_launches,
+              max(steps[b]["ep_err"] for b in steps), steps[B]["ep"],
+              steps[B]["ep_plain"],
+              _bound(2 * step_macs * limb_pairs(full),
+                     B * rows * N + rows * k1 * N * 4 + 2 * B * k1 * N * 4),
+              library_ms=steps[B]["ep_lib"]),
+        entry("stage1_digits", "blind_rotate.cu", 235, s1_launches,
+              max(steps[b]["s1_err"] for b in steps), steps[B]["s1"],
+              steps[B]["s1_plain"],
+              _bound(0, B * k1 * N * 4 + B * 4 + B * rows * N)),
         entry("blind_rotate_fused", "blind_rotate.cu", 358, main_launches,
-              max(errs), times),
+              max(errs), times[B][0] * 1e3, times[B][1] * 1e3,
+              rotation_bound(full, B, L)),
+        entry("blind_rotate_fused_bg", "blind_rotate.cu", 713, bg_launches,
+              bg["err"], bg["ms"], bg["plain_ms"],
+              rotation_bound(full, bg["B"], bg["L"])),
         entry("blind_rotate_fused64", "blind_rotate64.cu", 1196, main64,
-              max(errs64), times64),
+              max(errs64), times64[B][0] * 1e3, times64[B][1] * 1e3,
+              rotation_bound(full64, B, L)),
         entry("blind_rotate_fused64_bg", "blind_rotate64.cu", 1662,
-              main64_bg, max(errs64_bg), times64_bg),
-    ]}))
+              main64_bg, max(errs64_bg), times64_bg[B][0] * 1e3,
+              times64_bg[B][1] * 1e3, rotation_bound(full64, B, L, drop)),
+    ]
+    print(f"chip_smoke {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

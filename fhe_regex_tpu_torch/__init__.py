@@ -1,12 +1,19 @@
 """fhe-regex-tpu-torch: encrypted regex matching on PyTorch and CUDA.
 
 The PyTorch port of ``fhe_regex_tpu``, with the same public surface for the
-main path: ``gen_keys -> encrypt_str -> has_match -> decrypt``.  The result
-of ``has_match`` is an encrypted 0/1 only the client key opens.  Device
-work runs on the ``device`` given (default: CUDA when present, else CPU);
-on CUDA the blind rotation is a hand-written kernel of ``ops/pbs_cuda.py``.
-Both torus widths run: 32 bits (``TPU_MESSAGE_2_CARRY_2``, the default) and
-64 bits (``TPU64_MESSAGE_2_CARRY_2``), where ciphertexts are uint64.
+main path, ``gen_keys -> encrypt_str -> has_match -> decrypt``, and the
+serving paths: many contents (``has_match_many``), many patterns, match
+positions, long contents in windows, and match counts.  The result of
+``has_match`` is an encrypted 0/1 only the client key opens.  Device work
+runs on the ``device`` given: CUDA by default (a RuntimeError if there is
+none), or ``device="cpu"`` for the plain PyTorch path.  On CUDA the blind
+rotation is a hand-written kernel of ``ops/pbs_cuda.py``.  Both torus widths
+run: 32 bits (``TPU_MESSAGE_2_CARRY_2``, the default) and 64 bits
+(``TPU64_MESSAGE_2_CARRY_2``), where ciphertexts are uint64.
+
+The port compiles the classic (one rotation per bootstrap) plan only:
+``multivalue=True`` raises NotImplementedError until multi-value
+bootstrapping is ported (ROADMAP.md, queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -29,8 +36,9 @@ from fhe_regex_tpu_torch.crypto.keys import (
 from fhe_regex_tpu_torch.crypto import lwe as _lwe
 from fhe_regex_tpu_torch.regex.circuit import CircuitBuilder, Node
 from fhe_regex_tpu_torch.regex.engine import BranchBudgetExceeded, compile_match
-from fhe_regex_tpu_torch.regex.executor import (CompiledCircuit, Executor,
-                                                compile_circuit,
+from fhe_regex_tpu_torch.regex.executor import (MAX_LEVEL_BATCH,
+                                                CompiledCircuit, Executor,
+                                                _bucket, compile_circuit,
                                                 default_min_bucket)
 from fhe_regex_tpu_torch.ops.pbs import prepare_server_key, resolve_backend
 
@@ -46,6 +54,15 @@ __all__ = [
     "encrypt_str",
     "trivial_encrypt_str",
     "has_match",
+    "has_match_many",
+    "has_match_patterns",
+    "has_match_many_patterns",
+    "has_match_positions",
+    "has_match_many_positions",
+    "has_match_long",
+    "has_match_many_long",
+    "count_matches",
+    "decrypt_count",
     "decrypt",
     "compile_match",
     "BranchBudgetExceeded",
@@ -55,13 +72,30 @@ __all__ = [
     "CircuitBuilder",
     "Node",
     "executor_for",
+    "run_circuit",
 ]
 
 logger = logging.getLogger("fhe_regex_tpu_torch")
 
 
-def _default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+def _resolve_device(device: "torch.device | str | None") -> torch.device:
+    """``device=None`` means CUDA; without a CUDA device that raises, so the
+    plain CPU path runs only when asked for."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on CUDA by default; "
+                           "pass device=\"cpu\" to run its plain PyTorch "
+                           "path on the CPU")
+    return torch.device("cuda")
+
+
+def _classic(multivalue: Optional[bool]) -> None:
+    """The port compiles the classic plan: multivalue None/False only."""
+    if multivalue:
+        raise NotImplementedError(
+            "multi-value bootstrapping is not ported yet (ROADMAP.md, "
+            "queue 1 item 4); pass multivalue=None or False")
 
 
 def encrypt_str(client_key: ClientKey, s: str) -> np.ndarray:
@@ -89,7 +123,8 @@ def trivial_encrypt_str(params: Params, s: str) -> np.ndarray:
 
 def executor_for(server_key: ServerKey, backend: Optional[str] = None,
                  device: "torch.device | str | None" = None) -> Executor:
-    """A (cached) Executor bound to this server key's material on `device`.
+    """A (cached) Executor bound to this server key's material on `device`
+    (None: CUDA, a RuntimeError without one; "cpu" for the plain path).
 
     Executors are cached on the key per (backend, device), so repeated
     calls reuse the device upload.  Run a custom circuit with
@@ -98,7 +133,7 @@ def executor_for(server_key: ServerKey, backend: Optional[str] = None,
     from fhe_regex_tpu_torch.params import warn_if_unsafe
 
     warn_if_unsafe(server_key.params, "executor_for")
-    device = torch.device(device) if device is not None else _default_device()
+    device = _resolve_device(device)
     backend = resolve_backend(backend, device, server_key.params)
     cache = server_key.__dict__.setdefault("_torch_executors", {})
     key = (backend, str(device))
@@ -113,19 +148,22 @@ def has_match(server_key: ServerKey, ct_content: np.ndarray, pattern: str,
               backend: Optional[str] = None,
               fold: str = "reference",
               branch_budget: Optional[int] = None,
-              device: "torch.device | str | None" = None) -> np.ndarray:
+              device: "torch.device | str | None" = None,
+              multivalue: Optional[bool] = None) -> np.ndarray:
     """Encrypted match: does `pattern` match the encrypted content?
 
     Mirrors ``engine::has_match`` (engine.rs:8-42): returns a radix
     ciphertext encrypting 1 (match) or 0 (no match), uint32 or uint64 by
     the torus width.  ``backend`` selects the blind rotation ('torch' /
-    'torch64' plain paths, 'cuda-fused' / 'cuda64' / 'cuda64-bg' kernels,
-    None = the width's default kernel on CUDA devices, see
-    ``ops.pbs.resolve_backend``); ``fold='tree'`` replaces the reference's
-    sequential OR fold with a log-depth tree (same decrypted result, far
-    lower latency); ``branch_budget`` bounds variant expansion with a clean
-    BranchBudgetExceeded.
+    'torch64' plain paths, 'cuda-fused' / 'cuda-bg' / 'cuda' / 'cuda64' /
+    'cuda64-bg' kernels, None = the width's default kernel on CUDA
+    devices, see ``ops.pbs.resolve_backend``); ``fold='tree'`` replaces the
+    reference's sequential OR fold with a log-depth tree (same decrypted
+    result, far lower latency); ``branch_budget`` bounds variant expansion
+    with a clean BranchBudgetExceeded; ``multivalue`` must be None or
+    False (the classic plan).
     """
+    _classic(multivalue)
     params = server_key.params
     builder, root = compile_match(len(ct_content), pattern,
                                   num_blocks=params.num_blocks, fold=fold,
@@ -139,6 +177,443 @@ def has_match(server_key: ServerKey, ct_content: np.ndarray, pattern: str,
         circuit.ct_ops, circuit.cache_hits, circuit.pbs_count, len(circuit.levels),
     )
     return result
+
+
+def _contents4(ct_contents) -> np.ndarray:
+    contents = np.ascontiguousarray(ct_contents)
+    if contents.ndim != 4:
+        raise ValueError("expected [C, len, num_blocks, n+1] contents")
+    return contents
+
+
+def has_match_many(server_key: ServerKey, ct_contents, pattern: str,
+                   backend: Optional[str] = None, fold: str = "tree",
+                   branch_budget: Optional[int] = None,
+                   wide_batch: Optional[bool] = None,
+                   multivalue: Optional[bool] = None,
+                   device: "torch.device | str | None" = None) -> np.ndarray:
+    """Match one pattern against many equal-length encrypted contents.
+
+    The serving path: the compiled circuit is shared and every level's
+    bootstrap batch spans all contents (``Executor.run_many``).  Returns
+    [C, num_blocks, n+1].  ``wide_batch`` enables the WIDE_LEVEL_BATCH
+    launch width for big packed levels (default: on for CUDA).
+
+    Where the JAX package would choose the multi-value plan automatically
+    on its packed paths, the port computes the classic plan until
+    multi-value bootstrapping is ported (ROADMAP.md, queue 1 item 4): the
+    decrypted results agree, the ciphertexts differ.  ``multivalue=True``
+    raises NotImplementedError.
+    """
+    _classic(multivalue)
+    params = server_key.params
+    contents = _contents4(ct_contents)
+    builder, root = compile_match(contents.shape[1], pattern,
+                                  num_blocks=params.num_blocks, fold=fold,
+                                  branch_budget=branch_budget)
+    circuit = compile_circuit(params, builder, root,
+                              min_bucket=default_min_bucket())
+    executor = executor_for(server_key, backend, device)
+    result = executor.run_many(circuit, contents, wide_batch=wide_batch)
+    logger.info(
+        "%d contents x (%d ops, %d bootstraps in %d levels)",
+        contents.shape[0], circuit.ct_ops, circuit.pbs_count,
+        len(circuit.levels),
+    )
+    return result
+
+
+def run_circuit(server_key: ServerKey, builder: CircuitBuilder, root,
+                ct_content: np.ndarray, backend: Optional[str] = None,
+                device: "torch.device | str | None" = None) -> np.ndarray:
+    """One-shot compile + execute of a custom CircuitBuilder DAG.
+
+    ``root`` is one Node (result ``[num_blocks, n+1]``) or a list of Nodes
+    (result ``[R, num_blocks, n+1]``); pending gate nodes are forced
+    automatically.  For repeated serving of the same circuit, compile once
+    with ``compile_circuit`` and reuse an ``executor_for`` instead.
+    """
+    params = server_key.params
+    if isinstance(root, (list, tuple)):
+        root = [builder.force_node(r) for r in root]
+    else:
+        root = builder.force_node(root)
+    circuit = compile_circuit(params, builder, root,
+                              min_bucket=default_min_bucket())
+    executor = executor_for(server_key, backend, device)
+    return executor.run(circuit, np.ascontiguousarray(ct_content))
+
+
+def _compile_multi(params: Params, content_len: int, patterns, fold: str,
+                   branch_budget: Optional[int]):
+    from fhe_regex_tpu_torch.regex.engine import compile_match_multi
+
+    patterns = list(patterns)
+    if not patterns:
+        raise ValueError("need at least one pattern")
+    return compile_match_multi(content_len, patterns,
+                               num_blocks=params.num_blocks, fold=fold,
+                               branch_budget=branch_budget)
+
+
+def _compile_positions(params: Params, content_len: int, pattern: str,
+                       fold: str, branch_budget: Optional[int]):
+    from fhe_regex_tpu_torch.regex.engine import compile_match_positions
+
+    return compile_match_positions(content_len, pattern,
+                                   num_blocks=params.num_blocks, fold=fold,
+                                   branch_budget=branch_budget)
+
+
+def _run_roots(server_key, backend, device, builder, roots, ct_content,
+               what: str) -> np.ndarray:
+    """One content through a multi-root circuit: [R, num_blocks, n+1]."""
+    params = server_key.params
+    circuit = compile_circuit(params, builder, roots,
+                              min_bucket=default_min_bucket())
+    executor = executor_for(server_key, backend, device)
+    result = executor.run(circuit, np.ascontiguousarray(ct_content))
+    logger.info(
+        "%d %s: %d ciphertext operations, %d cache hits "
+        "(%d bootstraps in %d levels)",
+        len(roots), what, circuit.ct_ops, circuit.cache_hits,
+        circuit.pbs_count, len(circuit.levels),
+    )
+    return result
+
+
+def _run_roots_many(server_key, backend, device, builder, roots, contents,
+                    wide_batch, what: str) -> np.ndarray:
+    """Many contents through a multi-root circuit: [C, R, num_blocks, n+1]."""
+    params = server_key.params
+    circuit = compile_circuit(params, builder, roots,
+                              min_bucket=default_min_bucket())
+    executor = executor_for(server_key, backend, device)
+    result = executor.run_many(circuit, contents, wide_batch=wide_batch)
+    logger.info(
+        "%d contents x %d %s (%d ops, %d bootstraps in %d levels)",
+        contents.shape[0], len(roots), what, circuit.ct_ops,
+        circuit.pbs_count, len(circuit.levels),
+    )
+    return result
+
+
+def has_match_patterns(server_key: ServerKey, ct_content: np.ndarray,
+                       patterns, backend: Optional[str] = None,
+                       fold: str = "tree",
+                       branch_budget: Optional[int] = None,
+                       multivalue: Optional[bool] = None,
+                       device: "torch.device | str | None" = None
+                       ) -> np.ndarray:
+    """Match MANY patterns against one encrypted content in one circuit.
+
+    All patterns share a single hash-consed op DAG, so subexpressions common
+    across patterns are bootstrapped once.  Returns one radix ciphertext
+    per pattern, `[P, num_blocks, n+1]`, in pattern order; decrypt each with
+    ``decrypt``.  ``multivalue`` must be None or False (the classic plan).
+    """
+    _classic(multivalue)
+    builder, roots = _compile_multi(server_key.params, len(ct_content),
+                                    patterns, fold, branch_budget)
+    return _run_roots(server_key, backend, device, builder, roots,
+                      ct_content, "patterns")
+
+
+def has_match_positions(server_key: ServerKey, ct_content: np.ndarray,
+                        pattern: str, backend: Optional[str] = None,
+                        fold: str = "tree",
+                        branch_budget: Optional[int] = None,
+                        multivalue: Optional[bool] = None,
+                        device: "torch.device | str | None" = None
+                        ) -> np.ndarray:
+    """Per-offset encrypted match bits: result[i] encrypts 1 iff the pattern
+    matches starting at content position i (``has_match``'s bit is their
+    OR).  Returns `[len, num_blocks, n+1]`; decrypt each row with
+    ``decrypt``.  ``multivalue`` must be None or False (the classic plan).
+    """
+    _classic(multivalue)
+    builder, roots = _compile_positions(server_key.params, len(ct_content),
+                                        pattern, fold, branch_budget)
+    return _run_roots(server_key, backend, device, builder, roots,
+                      ct_content, "positions")
+
+
+def has_match_many_patterns(server_key: ServerKey, ct_contents, patterns,
+                            backend: Optional[str] = None, fold: str = "tree",
+                            branch_budget: Optional[int] = None,
+                            wide_batch: Optional[bool] = None,
+                            multivalue: Optional[bool] = None,
+                            device: "torch.device | str | None" = None
+                            ) -> np.ndarray:
+    """Match MANY patterns against MANY equal-length encrypted contents:
+    one compiled circuit, levels packed across contents.  Returns
+    `[C, P, num_blocks, n+1]`.
+
+    Where the JAX package would choose the multi-value plan automatically
+    on its packed paths, the port computes the classic plan until
+    multi-value bootstrapping is ported (ROADMAP.md, queue 1 item 4): the
+    decrypted results agree, the ciphertexts differ.  ``multivalue=True``
+    raises NotImplementedError.
+    """
+    _classic(multivalue)
+    contents = _contents4(ct_contents)
+    builder, roots = _compile_multi(server_key.params, contents.shape[1],
+                                    patterns, fold, branch_budget)
+    return _run_roots_many(server_key, backend, device, builder, roots,
+                           contents, wide_batch, "patterns")
+
+
+def has_match_many_positions(server_key: ServerKey, ct_contents,
+                             pattern: str, backend: Optional[str] = None,
+                             fold: str = "tree",
+                             branch_budget: Optional[int] = None,
+                             wide_batch: Optional[bool] = None,
+                             multivalue: Optional[bool] = None,
+                             device: "torch.device | str | None" = None
+                             ) -> np.ndarray:
+    """Per-offset match bits for MANY equal-length encrypted contents: one
+    compiled multi-root circuit, levels packed across contents.  Returns
+    ``[C, len, num_blocks, n+1]``.
+
+    Where the JAX package would choose the multi-value plan automatically
+    on its packed paths, the port computes the classic plan until
+    multi-value bootstrapping is ported (ROADMAP.md, queue 1 item 4): the
+    decrypted results agree, the ciphertexts differ.  ``multivalue=True``
+    raises NotImplementedError.
+    """
+    _classic(multivalue)
+    contents = _contents4(ct_contents)
+    builder, roots = _compile_positions(server_key.params, contents.shape[1],
+                                        pattern, fold, branch_budget)
+    return _run_roots_many(server_key, backend, device, builder, roots,
+                           contents, wide_batch, "positions")
+
+
+def _or_reduce_bits(server_key: ServerKey, backend: Optional[str],
+                    device, bits: np.ndarray) -> np.ndarray:
+    """Homomorphic OR of M encrypted result bits -> one radix ciphertext.
+
+    bits [M, num_blocks, n+1]: block-0 rows carry the 0/1 (the executor's
+    root convention).  Log3-depth rounds of batched OR2/OR3 bootstraps
+    through the executor's PBS core, in launches of MAX_LEVEL_BATCH and a
+    power-of-two tail (the JAX package's CPU chunking).
+    """
+    from fhe_regex_tpu_torch.crypto.golden import make_lut_poly
+    from fhe_regex_tpu_torch.ops.luts import LUT_OR2, LUT_OR3, lut_fn
+
+    params = server_key.params
+    ex = executor_for(server_key, backend, device)
+    dt = ex._np_u
+    luts = np.stack([make_lut_poly(params, lut_fn(LUT_OR2)),
+                     make_lut_poly(params, lut_fn(LUT_OR3))])
+    luts_dev = ex._upload(luts.view(ex._np_s), ex._dtype)
+    rows = np.ascontiguousarray(bits[:, 0, :], dtype=dt)      # [M, n+1]
+    while rows.shape[0] > 1:
+        g = [rows[i:i + 3] for i in range(0, rows.shape[0], 3)]
+        carry = [grp for grp in g if grp.shape[0] == 1]
+        work = [grp for grp in g if grp.shape[0] > 1]
+        B = len(work)
+        sizes = [MAX_LEVEL_BATCH] * (B // MAX_LEVEL_BATCH)
+        if B % MAX_LEVEL_BATCH:
+            sizes.append(_bucket(B % MAX_LEVEL_BATCH, default_min_bucket()))
+        x = np.zeros((sum(sizes), rows.shape[1]), dt)
+        idx = np.zeros(sum(sizes), np.int32)
+        with np.errstate(over="ignore"):
+            for j, grp in enumerate(work):
+                x[j] = grp[0] + dt(2) * grp[1]
+                if grp.shape[0] == 3:
+                    x[j] += dt(4) * grp[2]
+                    idx[j] = 1
+        outs, c0 = [], 0
+        for w in sizes:
+            outs.append(ex._core(
+                luts_dev, ex._upload(idx[c0:c0 + w]),
+                ex._upload(x[c0:c0 + w].view(ex._np_s), ex._dtype)).cpu())
+            c0 += w
+        out = torch.cat(outs).numpy()[:B].view(dt)
+        rows = np.concatenate([out] + carry)
+    res = np.zeros((params.num_blocks, params.lwe_dimension + 1), dt)
+    res[0] = rows[0]
+    return res
+
+
+def _window_plan(span: int, L: int, window: Optional[int]):
+    """Shared window layout for long-content matching: (W, starts).
+
+    Default W is at least 2*span so the stride (W - span) stays >= span;
+    the final window is flush with the content end.  Returns W >= L (and
+    no starts) when windowing cannot help."""
+    W = window if window is not None else max(2 * span, span + 1,
+                                              min(64, L))
+    W = min(max(W, span + 1), L)
+    if W >= L:
+        return W, []
+    S = W - span
+    return W, sorted({*range(0, L - W, S), L - W})
+
+
+def _long_plan(pattern: str, L: int):
+    """(span, sof, eof) of `pattern` for windowed matching; span None when
+    the pattern's match span is unbounded."""
+    from fhe_regex_tpu_torch.regex import parser as _P
+    from fhe_regex_tpu_torch.regex.engine import has_anchor, max_match_span
+
+    re = _P.parse(pattern)
+    return max_match_span(re), has_anchor(re, _P.SOF), has_anchor(re, _P.EOF)
+
+
+def has_match_long(server_key: ServerKey, ct_content: np.ndarray,
+                   pattern: str, window: Optional[int] = None,
+                   backend: Optional[str] = None, fold: str = "tree",
+                   branch_budget: Optional[int] = None,
+                   wide_batch: Optional[bool] = None,
+                   multivalue: Optional[bool] = None,
+                   device: "torch.device | str | None" = None) -> np.ndarray:
+    """Match over LONG encrypted content via overlapping windows.
+
+    When the pattern's maximum match span is bounded, any match fits inside
+    a fixed-size window, so the content is scanned as overlapping windows
+    (stride = window - span) batched through ``run_many`` and the window
+    bits are OR-reduced homomorphically.  Decrypts identically to
+    ``has_match`` on the full content.  Anchored patterns reduce to single
+    flush windows (`^`: the first span+1 chars; `$`: the last span chars;
+    both: trivial FALSE beyond the span); unbounded-span patterns fall back
+    to the direct circuit.
+
+    Where the JAX package would choose the multi-value plan automatically
+    on its packed paths, the port computes the classic plan until
+    multi-value bootstrapping is ported (ROADMAP.md, queue 1 item 4): the
+    decrypted results agree, the ciphertexts differ.  ``multivalue=True``
+    raises NotImplementedError.
+    """
+    _classic(multivalue)
+    params = server_key.params
+    content = np.ascontiguousarray(ct_content)
+    L = content.shape[0]
+    span, sof, eof = _long_plan(pattern, L)
+
+    def direct(ct):
+        return has_match(server_key, ct, pattern, backend=backend, fold=fold,
+                         branch_budget=branch_budget, device=device)
+
+    if span is None or L == 0:
+        return direct(content)
+    if sof and eof:
+        if L <= span:
+            return direct(content)
+        # the anchored pattern must span all L chars but can consume at
+        # most `span`: every branch is pruned, as in the direct circuit
+        dt = np.uint32 if params.torus_bits == 32 else np.uint64
+        return np.zeros((params.num_blocks, params.lwe_dimension + 1), dt)
+    if sof:
+        return direct(content[:min(L, span + 1)])
+    if eof:
+        return direct(content[L - min(L, max(span, 1)):])
+
+    W, starts = _window_plan(span, L, window)
+    if not starts:
+        return direct(content)
+    wins = np.stack([content[a:a + W] for a in starts])
+    bits = has_match_many(server_key, wins, pattern, backend=backend,
+                          fold=fold, branch_budget=branch_budget,
+                          wide_batch=wide_batch, device=device)
+    logger.info("long content: %d chars -> %d windows of %d (span %d)",
+                L, len(starts), W, span)
+    return _or_reduce_bits(server_key, backend, device, bits)
+
+
+def has_match_many_long(server_key: ServerKey, ct_contents,
+                        pattern: str, window: Optional[int] = None,
+                        backend: Optional[str] = None, fold: str = "tree",
+                        branch_budget: Optional[int] = None,
+                        wide_batch: Optional[bool] = None,
+                        multivalue: Optional[bool] = None,
+                        device: "torch.device | str | None" = None
+                        ) -> np.ndarray:
+    """Windowed matching over MANY equal-length long encrypted contents.
+
+    The batched form of ``has_match_long``: the windows of every document
+    pack into ONE ``run_many`` batch, then each document's window bits
+    OR-reduce.  Returns ``[C, num_blocks, n+1]``.  Anchored / unbounded-span
+    patterns reduce to one batched ``has_match_many`` over the (possibly
+    trimmed) documents.
+
+    Where the JAX package would choose the multi-value plan automatically
+    on its packed paths, the port computes the classic plan until
+    multi-value bootstrapping is ported (ROADMAP.md, queue 1 item 4): the
+    decrypted results agree, the ciphertexts differ.  ``multivalue=True``
+    raises NotImplementedError.
+    """
+    _classic(multivalue)
+    params = server_key.params
+    contents = _contents4(ct_contents)
+    C, L = contents.shape[0], contents.shape[1]
+    span, sof, eof = _long_plan(pattern, L)
+
+    def batched(cts):
+        return has_match_many(server_key, cts, pattern, backend=backend,
+                              fold=fold, branch_budget=branch_budget,
+                              wide_batch=wide_batch, device=device)
+
+    if span is None or L == 0:
+        return batched(contents)
+    if sof and eof:
+        if L <= span:
+            return batched(contents)
+        dt = np.uint32 if params.torus_bits == 32 else np.uint64
+        return np.zeros((C, params.num_blocks, params.lwe_dimension + 1), dt)
+    if sof:
+        return batched(contents[:, :min(L, span + 1)])
+    if eof:
+        return batched(contents[:, L - min(L, max(span, 1)):])
+
+    W, starts = _window_plan(span, L, window)
+    if not starts:
+        return batched(contents)
+    M = len(starts)
+    wins = np.stack([contents[c, a:a + W] for c in range(C) for a in starts])
+    bits = batched(wins)
+    logger.info("%d long contents: %d chars -> %d windows of %d each",
+                C, L, M, W)
+    return np.stack([
+        _or_reduce_bits(server_key, backend, device, bits[c * M:(c + 1) * M])
+        for c in range(C)])
+
+
+def count_matches(server_key: ServerKey, ct_content: np.ndarray,
+                  pattern: str, backend: Optional[str] = None,
+                  fold: str = "tree",
+                  branch_budget: Optional[int] = None,
+                  device: "torch.device | str | None" = None) -> np.ndarray:
+    """Encrypted NUMBER of matching start offsets.
+
+    Builds the per-position match bits (``has_match_positions``' circuit)
+    and sums them homomorphically into little-endian base-4 digits
+    (``circuit.count_bits``).  Returns ``[D, num_blocks, n+1]``; decrypt
+    with ``decrypt_count``.  The match bit is `count > 0`.
+    """
+    from fhe_regex_tpu_torch.regex.circuit import count_bits
+
+    params = server_key.params
+    builder, roots = _compile_positions(params, len(ct_content), pattern,
+                                        fold, branch_budget)
+    digits = count_bits(builder, roots)
+    digit_roots = [Node(("count", i), d) for i, d in enumerate(digits)]
+    circuit = compile_circuit(params, builder, digit_roots,
+                              min_bucket=default_min_bucket())
+    executor = executor_for(server_key, backend, device)
+    result = executor.run(circuit, np.ascontiguousarray(ct_content))
+    logger.info(
+        "count over %d positions: %d digits (%d bootstraps in %d levels)",
+        len(roots), len(digits), circuit.pbs_count, len(circuit.levels),
+    )
+    return result
+
+
+def decrypt_count(client_key: ClientKey, ct_count: np.ndarray) -> int:
+    """Decrypt ``count_matches``' little-endian base-4 digit rows."""
+    return sum(decrypt(client_key, ct_count[i]) * 4 ** i
+               for i in range(ct_count.shape[0]))
 
 
 def decrypt(client_key: ClientKey, ct_res: np.ndarray) -> int:

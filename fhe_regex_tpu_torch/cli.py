@@ -2,7 +2,8 @@
 
 Mirrors the reference binary (src/main.rs): pre-parses the pattern for an
 early error, then runs keygen -> encrypt -> has_match -> decrypt and prints
-``res: 0|1``.  Logging level via FHE_REGEX_LOG (analog of RUST_LOG,
+``res: 0|1`` (``--count``: the number of matching offsets; ``--positions``:
+one bit per start offset; ``--long``: windowed matching).  Logging level via FHE_REGEX_LOG (analog of RUST_LOG,
 main.rs:10-11); defaults to info.
 """
 
@@ -34,11 +35,24 @@ def main(argv=None) -> int:
                          "(log-depth, lower latency)")
     ap.add_argument("--seed", type=int, default=None, help="keygen seed")
     ap.add_argument("--device", default=None,
-                    help="torch device (default: cuda if available, else cpu)")
+                    help="torch device (default: cuda; an error without a "
+                         "CUDA device, so pass --device cpu for the plain "
+                         "CPU path)")
     ap.add_argument("--backend", default=None, choices=list(BACKENDS),
                     help="blind rotation (default on a CUDA device: the "
                          "cuda-fused kernel at 32 bits, cuda64-bg at 64; "
                          "elsewhere torch / torch64)")
+    ap.add_argument("--branch-budget", type=int, default=None,
+                    help="cap on circuit branch expansion (clean error "
+                         "instead of unbounded compile time)")
+    ap.add_argument("--count", action="store_true",
+                    help="print the NUMBER of matching offsets instead of 0/1")
+    ap.add_argument("--positions", action="store_true",
+                    help="print one 0/1 per start offset instead of the "
+                         "global match bit")
+    ap.add_argument("--long", dest="long_", action="store_true",
+                    help="windowed long-content matching (fixed circuit "
+                         "shape for any content length)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(
@@ -56,8 +70,9 @@ def main(argv=None) -> int:
     log.info("parsed: %r", re)
 
     from fhe_regex_tpu_torch import (
-        BranchBudgetExceeded, decrypt, encrypt_str, gen_keys, get_params,
-        has_match, trivial_encrypt_str,
+        BranchBudgetExceeded, count_matches, decrypt, decrypt_count,
+        encrypt_str, gen_keys, get_params, has_match, has_match_long,
+        has_match_positions, trivial_encrypt_str,
     )
 
     params = get_params(args.params)
@@ -73,14 +88,25 @@ def main(argv=None) -> int:
         return 2
 
     log.info("applying regex..")
+    kw = dict(backend=args.backend, fold=args.fold,
+              branch_budget=args.branch_budget, device=args.device)
     try:
-        ct_res = has_match(server_key, ct_content, args.pattern,
-                           backend=args.backend, fold=args.fold,
-                           device=args.device)
+        if args.count:
+            ct_res = count_matches(server_key, ct_content, args.pattern, **kw)
+            print(f"count: {decrypt_count(client_key, ct_res)}")
+            return 0
+        if args.positions:
+            ct_res = has_match_positions(server_key, ct_content, args.pattern,
+                                         **kw)
+            bits = "".join(str(decrypt(client_key, r)) for r in ct_res)
+            print(f"positions: {bits}")
+            return 0
+        match = has_match_long if args.long_ else has_match
+        ct_res = match(server_key, ct_content, args.pattern, **kw)
     except BranchBudgetExceeded as e:
         print(f"error: {e}", file=sys.stderr)
         return 3
-    except ValueError as e:   # argument errors (backend/device mismatches)
+    except (ValueError, RuntimeError) as e:   # backend/device mismatches
         print(f"error: {e}", file=sys.stderr)
         return 2
     print(f"res: {decrypt(client_key, ct_res)}")

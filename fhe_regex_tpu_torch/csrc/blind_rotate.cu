@@ -1,9 +1,18 @@
 // Blind rotation for a batch of 32-bit TFHE bootstraps on Hopper (sm_90a).
 //
-// Replaces fhe_regex_tpu/ops/pbs_pallas.py::_fused_blindrot_kernel (the
-// whole blind rotation of `pallas-fused`) and computes exactly what
-// fhe_regex_tpu_torch/ops/pbs.py::blind_rotate computes, bit for bit:
-// [B, n+1] mod-switched ciphertexts -> [B, k+1, N] accumulators.
+// Replaces four kernels of fhe_regex_tpu/ops/pbs_pallas.py, each computing
+// bit for bit what its plain twin in fhe_regex_tpu_torch/ops/pbs.py does:
+//  * _fused_blindrot_kernel (the whole blind rotation of `pallas-fused`):
+//    fhe_blind_rotate, [B, n+1] mod-switched ciphertexts -> [B, k+1, N]
+//    accumulators (plain: blind_rotate);
+//  * _fused_blindrot_bg_kernel (`pallas-bg`): fhe_blind_rotate_bg, the same
+//    rotation over batch blocks of tb instances, one block after another;
+//  * _stage1_kernel: fhe_stage1_digits, one `stage1` launch (plain:
+//    stage1_digits);
+//  * _ext_product_kernel: fhe_external_product_step, one `ext_product`
+//    launch onto a copy of the accumulator (plain: external_product_step).
+//    These two are the per-step backend `cuda`, whose step loop runs in
+//    Python.
 //
 // What bounds it.  Every CMUX step is an external product of the B
 // accumulators' digits with the step's GGSW, a [B, (k+1)l*N] x
@@ -30,6 +39,12 @@
 //    balanced digits into an int8 scratch) and one `ext_product` launch.
 //    The step loop runs on the host side of this library, so a level of
 //    any width spreads every step over the whole card.
+//  * fhe_blind_rotate_bg runs the same launches block by block.  A block's
+//    working set is tb x (16 KB accumulator + 12 KB digits), 25 MB at the
+//    default cap tb = 896: inside the 50 MB L2, where a whole B = 1792
+//    batch (50 MB of accumulators and digits) is not.
+//  * fhe_stage1_digits is bound by bytes (read the accumulator, write the
+//    digits); fhe_external_product_step by the multiply-adds, as above.
 //
 // All torus arithmetic is uint32_t: wraparound is defined there.
 
@@ -179,15 +194,50 @@ ext_product(const int8_t* __restrict__ digits,
   }
 }
 
-}  // namespace
-
-extern "C" {
-
 // Shared memory of one ext_product block for polynomial size N.
-static size_t ext_product_smem(int N) {
+size_t ext_product_smem(int N) {
   return (size_t)(pad_idx(N + TMB) + 8) * sizeof(uint32_t) +
          (size_t)TCH * TBB * sizeof(int32_t);
 }
+
+dim3 ext_product_grid(int B, int k1, int N, int rows) {
+  return dim3((B + TBB - 1) / TBB, k1 * (N / TMB), rows);
+}
+
+unsigned elementwise_grid(int B, int k1, int N) {
+  const long long elems = (long long)B * k1 * N;
+  return (unsigned)((elems + kThreads1 - 1) / kThreads1);
+}
+
+// The whole blind rotation of B instances, enqueued on `stream`.
+int rotate32(const int32_t* cts_ms, const int32_t* luts,
+             const int32_t* lut_idx, const uint32_t* bsk, uint32_t* acc,
+             int8_t* digits, int B, int n, int k1, int N, int level,
+             int base_log, cudaStream_t stream) {
+  const int rows = k1 * level;
+  const unsigned grid1 = elementwise_grid(B, k1, N);
+  const dim3 grid2 = ext_product_grid(B, k1, N, rows);
+  const size_t smem = ext_product_smem(N);
+
+  acc_init<<<grid1, kThreads1, 0, stream>>>(cts_ms, luts, lut_idx, acc, B, n,
+                                            k1, N);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long step_stride = (long long)rows * k1 * N;
+  for (int i = 0; i < n; ++i) {
+    stage1<<<grid1, kThreads1, 0, stream>>>(cts_ms, acc, digits, B, n, k1, N,
+                                            level, base_log, i);
+    ext_product<<<grid2, kWarps * 32, smem, stream>>>(
+        digits, bsk + i * step_stride, acc, B, k1, N, rows);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+}  // namespace
+
+extern "C" {
 
 // The whole blind rotation, enqueued on `stream`; returns a cudaError_t.
 //   cts_ms  [B, n+1] int32 in [0, 2N)      luts [L, N]    lut_idx [B]
@@ -198,29 +248,65 @@ int fhe_blind_rotate(const int32_t* cts_ms, const int32_t* luts,
                      const int32_t* lut_idx, const int32_t* bsk, int32_t* acc,
                      int8_t* digits, int B, int n, int k1, int N, int level,
                      int base_log, void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  uint32_t* accu = reinterpret_cast<uint32_t*>(acc);
-  const uint32_t* bsku = reinterpret_cast<const uint32_t*>(bsk);
-  const int rows = k1 * level;
-  const long long elems = (long long)B * k1 * N;
-  const unsigned grid1 = (unsigned)((elems + kThreads1 - 1) / kThreads1);
-  const dim3 grid2((B + TBB - 1) / TBB, k1 * (N / TMB), rows);
-  const size_t smem = ext_product_smem(N);
+  return rotate32(cts_ms, luts, lut_idx, reinterpret_cast<const uint32_t*>(bsk),
+                  reinterpret_cast<uint32_t*>(acc), digits, B, n, k1, N, level,
+                  base_log, static_cast<cudaStream_t>(stream_ptr));
+}
 
-  acc_init<<<grid1, kThreads1, 0, stream>>>(cts_ms, luts, lut_idx, accu, B, n,
-                                            k1, N);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const long long step_stride = (long long)rows * k1 * N;
-  for (int i = 0; i < n; ++i) {
-    stage1<<<grid1, kThreads1, 0, stream>>>(cts_ms, accu, digits, B, n, k1, N,
-                                            level, base_log, i);
-    ext_product<<<grid2, kWarps * 32, smem, stream>>>(
-        digits, bsku + i * step_stride, accu, B, k1, N, rows);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
+// The same rotation over batch blocks of tb instances, one after another
+// (the `pallas-bg` kernel's counterpart, block-major as the JAX package
+// runs it at 32 bits); tb divides B, and the one digits scratch is
+// [tb, k1*level, N], reused by every block.
+int fhe_blind_rotate_bg(const int32_t* cts_ms, const int32_t* luts,
+                        const int32_t* lut_idx, const int32_t* bsk,
+                        int32_t* acc, int8_t* digits, int B, int tb, int n,
+                        int k1, int N, int level, int base_log,
+                        void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const uint32_t* bsku = reinterpret_cast<const uint32_t*>(bsk);
+  uint32_t* accu = reinterpret_cast<uint32_t*>(acc);
+  for (int b0 = 0; b0 < B; b0 += tb) {
+    int err = rotate32(cts_ms + (long long)b0 * (n + 1), luts, lut_idx + b0,
+                       bsku, accu + (long long)b0 * k1 * N, digits, tb, n, k1,
+                       N, level, base_log, stream);
+    if (err != 0) return err;
   }
   return 0;
+}
+
+// One CMUX step's digits (the `_stage1_kernel` counterpart): digits[b, c*l
+// + j, :] = j-th most significant balanced digit of X^{a[b]} * acc[b, c] -
+// acc[b, c].  a [B] int32 in [0, 2N) is read as a one-column cts_ms (n = 0,
+// step 0); acc [B, k1, N]; digits [B, k1*level, N] int8 (output).
+int fhe_stage1_digits(const int32_t* a, const int32_t* acc, int8_t* digits,
+                      int B, int k1, int N, int level, int base_log,
+                      void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  stage1<<<elementwise_grid(B, k1, N), kThreads1, 0, stream>>>(
+      a, reinterpret_cast<const uint32_t*>(acc), digits, B, 0, k1, N, level,
+      base_log, 0);
+  return (int)cudaGetLastError();
+}
+
+// One CMUX step's external product (the `_ext_product_kernel`
+// counterpart): out = acc + sum_r digits[:, r] (*) ggsw_i[r, c] mod X^N+1,
+// mod 2^32.  out starts as a copy of acc, so acc is left as it is.
+//   digits [B, k1*level, N] int8   ggsw_i [k1*level, k1, N]
+//   acc, out [B, k1, N]
+int fhe_external_product_step(const int8_t* digits, const int32_t* ggsw_i,
+                              const int32_t* acc, int32_t* out, int B, int k1,
+                              int N, int level, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  const int rows = k1 * level;
+  cudaError_t err = cudaMemcpyAsync(
+      out, acc, (size_t)B * k1 * N * sizeof(int32_t),
+      cudaMemcpyDeviceToDevice, stream);
+  if (err != cudaSuccess) return (int)err;
+  ext_product<<<ext_product_grid(B, k1, N, rows), kWarps * 32,
+                ext_product_smem(N), stream>>>(
+      digits, reinterpret_cast<const uint32_t*>(ggsw_i),
+      reinterpret_cast<uint32_t*>(out), B, k1, N, rows);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

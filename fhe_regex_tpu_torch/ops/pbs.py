@@ -26,6 +26,9 @@ Backends, named after the JAX package's:
   32-bit torus  ``torch``      this plain path, on any device (JAX ``jnp``)
                 ``cuda-fused`` the CUDA blind rotation of ``ops/pbs_cuda.py``
                                (JAX ``pallas-fused``)
+                ``cuda-bg``    the same over batch blocks (``pallas-bg``)
+                ``cuda``       one CUDA launch per CMUX stage, the step
+                               loop in Python (``pallas``)
   64-bit torus  ``torch64``    the plain path of ``ops/pbs64.py`` (``jnp64``)
                 ``cuda64``     the CUDA 64-bit blind rotation (``pallas64``)
                 ``cuda64-bg``  the same over batch blocks, on the key rounded
@@ -126,34 +129,60 @@ def _ext_product_matrix(ggsw: torch.Tensor) -> torch.Tensor:
 # ---------------- blind rotation (plain path) ----------------
 
 
+def stage1_digits(params: Params, acc: torch.Tensor,
+                  a: torch.Tensor) -> torch.Tensor:
+    """One CMUX step's digits: acc [B, k+1, N] int32, a [B] int32 in
+    [0, 2N) -> [B, (k+1)l, N] int8, the balanced digits of
+    X^{a_b} * acc[b] - acc[b], rows in (component, level) order with the
+    most significant digit first (the plain ``_stage1_kernel``)."""
+    B, k1, N = acc.shape
+    l = params.pbs_level
+    rotated = negacyclic_rotate_batch(acc, a)
+    diff = rotated.to(I64) - acc.to(I64)
+    digits = decompose(diff, params.pbs_base_log, l)               # [l, B, k1, N]
+    return digits.permute(1, 2, 0, 3).reshape(B, k1 * l, N).to(torch.int8)
+
+
+def external_product_step(params: Params, digits: torch.Tensor,
+                          ggsw_i: torch.Tensor,
+                          acc: torch.Tensor) -> torch.Tensor:
+    """acc + sum_r digits[:, r] (*) ggsw_i[r, c] mod X^N + 1, mod 2^32:
+    digits [B, (k+1)l, N] int8, ggsw_i [(k+1)l, k+1, N] int32, acc
+    [B, k+1, N] int32 -> [B, k+1, N] int32 (the plain
+    ``_ext_product_kernel``).
+
+    One float64 matmul [B, (k+1)l*N] x [(k+1)l*N, (k+1)*N].  Digits are at
+    most B/2 = 64 and the key entries are signed int32, so every sum is
+    bounded by (k+1)*l*N * 64 * 2^31 = 12288 * 2^6 * 2^31 < 2^51 at the
+    production set: exact in float64.
+    """
+    B, k1, N = acc.shape
+    d = digits.reshape(B, -1).to(F64)
+    out = torch.matmul(d, _ext_product_matrix(ggsw_i))
+    return wrap_i32(acc.to(I64) + out.to(I64).reshape(B, k1, N))
+
+
+def init_accumulator(params: Params, luts: torch.Tensor,
+                     lut_idx: torch.Tensor,
+                     cts_ms: torch.Tensor) -> torch.Tensor:
+    """acc0 [B, k+1, N] = (0, X^{-b~} * luts[lut_idx]) for [B, n+1]
+    mod-switched cts."""
+    k, N, n = (params.glwe_dimension, params.polynomial_size,
+               params.lwe_dimension)
+    acc = torch.zeros((cts_ms.shape[0], k + 1, N), dtype=I32,
+                      device=cts_ms.device)
+    acc[:, k, :] = luts[lut_idx.to(I64)]
+    return negacyclic_rotate_batch(acc, (2 * N - cts_ms[:, n]) & (2 * N - 1))
+
+
 def blind_rotate(params: Params, bsk: torch.Tensor, luts: torch.Tensor,
                  lut_idx: torch.Tensor, cts_ms: torch.Tensor) -> torch.Tensor:
-    """[B, n+1] mod-switched cts -> [B, k+1, N] int32 accumulators.
-
-    Each CMUX step's external product is one float64 matmul
-    [B, (k+1)l*N] x [(k+1)l*N, (k+1)*N].  Digits are at most B/2 = 64 and
-    the key entries are signed int32, so every sum is bounded by
-    (k+1)*l*N * 64 * 2^31 = 12288 * 2^6 * 2^31 < 2^51 at the production set:
-    exact in float64.
-    """
-    k, N, n, l = (params.glwe_dimension, params.polynomial_size,
-                  params.lwe_dimension, params.pbs_level)
-    k1 = k + 1
-    B = cts_ms.shape[0]
-    rows = k1 * l
-
-    acc = torch.zeros((B, k1, N), dtype=I32, device=cts_ms.device)
-    acc[:, k, :] = luts[lut_idx.to(I64)]
-    # X^{-b~} * v
-    acc = negacyclic_rotate_batch(acc, (2 * N - cts_ms[:, n]) & (2 * N - 1))
-    for i in range(n):
-        rotated = negacyclic_rotate_batch(acc, cts_ms[:, i])
-        diff = rotated.to(I64) - acc.to(I64)
-        digits = decompose(diff, params.pbs_base_log, l)           # [l, B, k1, N]
-        d = digits.permute(1, 2, 0, 3).reshape(B, rows * N).to(F64)
-        # out[b, c, :] = sum_r d[b, r, :] (*) bsk[i, r, c]
-        out = torch.matmul(d, _ext_product_matrix(bsk[i]))
-        acc = wrap_i32(acc.to(I64) + out.to(I64).reshape(B, k1, N))
+    """[B, n+1] mod-switched cts -> [B, k+1, N] int32 accumulators: n CMUX
+    steps of ``stage1_digits`` then ``external_product_step``."""
+    acc = init_accumulator(params, luts, lut_idx, cts_ms)
+    for i in range(params.lwe_dimension):
+        digits = stage1_digits(params, acc, cts_ms[:, i])
+        acc = external_product_step(params, digits, bsk[i], acc)
     return acc
 
 
@@ -204,10 +233,10 @@ def pbs_batch(params: Params, bsk: torch.Tensor, ksk_f64: torch.Tensor,
 # ---------------- backend selection ----------------
 
 
-BACKENDS32 = ("torch", "cuda-fused")
+BACKENDS32 = ("torch", "cuda-fused", "cuda-bg", "cuda")
 BACKENDS64 = ("torch64", "cuda64", "cuda64-bg")
 BACKENDS = BACKENDS32 + BACKENDS64
-CUDA_BACKENDS = ("cuda-fused", "cuda64", "cuda64-bg")
+CUDA_BACKENDS = ("cuda-fused", "cuda-bg", "cuda", "cuda64", "cuda64-bg")
 
 
 class DeviceServerKey:
@@ -290,12 +319,15 @@ def make_pbs_core(dev_key: DeviceServerKey):
             return pbs_batch(params, dev_key.bsk, dev_key.ksk, luts, lut_idx,
                              cts)
         return core
-    if dev_key.backend == "cuda-fused":
-        from fhe_regex_tpu_torch.ops.pbs_cuda import blind_rotate_fused
+    if dev_key.backend in ("cuda-fused", "cuda-bg", "cuda"):
+        from fhe_regex_tpu_torch.ops import pbs_cuda
+        rotate = {"cuda-fused": pbs_cuda.blind_rotate_fused,
+                  "cuda-bg": pbs_cuda.blind_rotate_fused_bg,
+                  "cuda": pbs_cuda.blind_rotate_steps}[dev_key.backend]
 
         def core(luts, lut_idx, cts):
             ms = mod_switch(params, cts)
-            acc = blind_rotate_fused(params, dev_key.bsk, luts, lut_idx, ms)
+            acc = rotate(params, dev_key.bsk, luts, lut_idx, ms)
             return key_switch(params, dev_key.ksk,
                               sample_extract(params, acc))
         return core

@@ -1,16 +1,28 @@
 """The hand-written CUDA blind rotations (``csrc/*.cu``).
 
-The Hopper counterparts of ``fhe_regex_tpu/ops/pbs_pallas.py``'s fused
-blind rotations: the whole n-step CMUX ladder for a batch, with the LUT
-selection and the initial X^{-b~} rotation built on the device.
+The Hopper counterparts of ``fhe_regex_tpu/ops/pbs_pallas.py``'s kernels:
+the whole n-step CMUX ladder for a batch, with the LUT selection and the
+initial X^{-b~} rotation built on the device, or one CMUX stage at a time.
 
   ``blind_rotate_fused``      32-bit, ``csrc/blind_rotate.cu``
                               (``_fused_blindrot_kernel``)
+  ``blind_rotate_fused_bg``   32-bit over batch blocks, same source
+                              (``_fused_blindrot_bg_kernel``)
+  ``stage1_digits``           one CMUX step's digits, same source
+                              (``_stage1_kernel``)
+  ``external_product_step``   one CMUX step's external product, same
+                              source (``_ext_product_kernel``)
+  ``blind_rotate_steps``      the rotation as a Python loop over the two
+                              above (``blind_rotate_pallas``)
   ``blind_rotate_fused64``    64-bit, ``csrc/blind_rotate64.cu``
                               (``_fused_blindrot64_stacked_kernel`` /
                               ``_fused_blindrot64_kernel``)
   ``blind_rotate_fused64_bg`` 64-bit over batch blocks, same source
                               (``_fused_blindrot64_bg_kernel``)
+
+Every wrapper takes its plain PyTorch version (``ops/pbs.py``,
+``ops/pbs64.py``) on CPU tensors and launches its kernel on CUDA tensors,
+adding one to its ``launches`` count per launch; it never falls back.
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/`` at the repository root, keyed by a hash of the sources (one
@@ -30,6 +42,7 @@ from pathlib import Path
 
 import torch
 
+from fhe_regex_tpu_torch.ops import pbs as plain
 from fhe_regex_tpu_torch.ops.pbs import blind_rotate
 from fhe_regex_tpu_torch.ops.pbs64 import blind_rotate64
 from fhe_regex_tpu_torch.params import Params
@@ -100,17 +113,31 @@ def _load():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.fhe_blind_rotate.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.fhe_blind_rotate.restype = ctypes.c_int
-        lib.fhe_blind_rotate64.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-        lib.fhe_blind_rotate64.restype = ctypes.c_int
-        lib.fhe_blind_rotate64_bg.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-        lib.fhe_blind_rotate64_bg.restype = ctypes.c_int
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        signatures = {   # (pointers, ints), then the stream
+            "fhe_blind_rotate": (6, 6),
+            "fhe_blind_rotate_bg": (6, 7),
+            "fhe_stage1_digits": (3, 5),
+            "fhe_external_product_step": (4, 4),
+            "fhe_blind_rotate64": (6, 6),
+            "fhe_blind_rotate64_bg": (6, 7),
+        }
+        for name, (ptrs, ints) in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = [ptr] * ptrs + [i32] * ints + [ptr]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def _call(entry: str, device: torch.device, *args) -> None:
+    """Enqueue one C entry point on the current stream of ``device``; a
+    nonzero cudaError_t raises."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(_load(), entry)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: cudaError_t {err}")
 
 
 def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
@@ -125,6 +152,61 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def _on_cuda(what: str, t: torch.Tensor) -> bool:
+    """False for a CPU tensor (take the plain version), True for a CUDA
+    one (launch); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"no {what} kernel for {t.device}")
+    return True
+
+
+def _check_params32(params: Params) -> None:
+    N, l = params.polynomial_size, params.pbs_level
+    if params.torus_bits != 32:
+        raise ValueError("the CUDA blind rotation is 32-bit only")
+    if N % 256 or N & (N - 1):
+        raise ValueError(f"N={N}: the kernel needs a power of two >= 256")
+    if params.pbs_base_log > 7 or params.pbs_base_log * l >= 32:
+        raise ValueError("the kernel's int8 digits need base_log <= 7 and "
+                         "base_log * level < 32")
+
+
+def _check32(params: Params, bsk, luts, lut_idx, cts_ms) -> None:
+    _check_params32(params)
+    k1 = params.glwe_dimension + 1
+    N, n, l = params.polynomial_size, params.lwe_dimension, params.pbs_level
+    B = cts_ms.shape[0]
+    if B < 1:
+        raise ValueError("empty batch")
+    dev = cts_ms.device
+    _check("cts_ms", cts_ms, (B, n + 1), torch.int32, dev)
+    _check("luts", luts, (luts.shape[0], N), torch.int32, dev)
+    _check("lut_idx", lut_idx, (B,), torch.int32, dev)
+    _check("bsk", bsk, (n, k1 * l, k1, N), torch.int32, dev)
+
+
+def _launch(entry: str, params: Params, bsk, luts, lut_idx, cts_ms,
+            tb: "int | None") -> torch.Tensor:
+    """One whole-rotation entry point (``tb`` given: over batch blocks) at
+    either torus width: int32 accumulators and int8 digits at 32 bits,
+    int64 and int32 at 64."""
+    k1 = params.glwe_dimension + 1
+    N, n, l = params.polynomial_size, params.lwe_dimension, params.pbs_level
+    B, dev = cts_ms.shape[0], cts_ms.device
+    wide = params.torus_bits == 64
+    acc = torch.empty((B, k1, N), device=dev,
+                      dtype=torch.int64 if wide else torch.int32)
+    digits = torch.empty((tb or B, k1 * l, N), device=dev,
+                         dtype=torch.int32 if wide else torch.int8)
+    blocks = () if tb is None else (tb,)
+    _call(entry, dev, cts_ms.data_ptr(), luts.data_ptr(), lut_idx.data_ptr(),
+          bsk.data_ptr(), acc.data_ptr(), digits.data_ptr(), B, *blocks, n,
+          k1, N, l, params.pbs_base_log)
+    return acc
+
+
 def blind_rotate_fused(params: Params, bsk: torch.Tensor, luts: torch.Tensor,
                        lut_idx: torch.Tensor,
                        cts_ms: torch.Tensor) -> torch.Tensor:
@@ -135,39 +217,11 @@ def blind_rotate_fused(params: Params, bsk: torch.Tensor, luts: torch.Tensor,
     take that plain version; CUDA tensors launch the kernel (each call adds
     one to ``blind_rotate_fused.launches``).
     """
-    if cts_ms.device.type == "cpu":
+    if not _on_cuda("blind rotation", cts_ms):
         return blind_rotate(params, bsk, luts, lut_idx, cts_ms)
-    if cts_ms.device.type != "cuda":
-        raise ValueError(f"no blind rotation kernel for {cts_ms.device}")
-    k1 = params.glwe_dimension + 1
-    N, n, l = params.polynomial_size, params.lwe_dimension, params.pbs_level
-    if params.torus_bits != 32:
-        raise ValueError("the CUDA blind rotation is 32-bit only")
-    if N % 256 or N & (N - 1):
-        raise ValueError(f"N={N}: the kernel needs a power of two >= 256")
-    if params.pbs_base_log > 7 or params.pbs_base_log * l >= 32:
-        raise ValueError("the kernel's int8 digits need base_log <= 7 and "
-                         "base_log * level < 32")
-    B = cts_ms.shape[0]
-    if B < 1:
-        raise ValueError("empty batch")
-    dev = cts_ms.device
-    _check("cts_ms", cts_ms, (B, n + 1), torch.int32, dev)
-    _check("luts", luts, (luts.shape[0], N), torch.int32, dev)
-    _check("lut_idx", lut_idx, (B,), torch.int32, dev)
-    _check("bsk", bsk, (n, k1 * l, k1, N), torch.int32, dev)
-
-    lib = _load()
-    acc = torch.empty((B, k1, N), dtype=torch.int32, device=dev)
-    digits = torch.empty((B, k1 * l, N), dtype=torch.int8, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.fhe_blind_rotate(
-            cts_ms.data_ptr(), luts.data_ptr(), lut_idx.data_ptr(),
-            bsk.data_ptr(), acc.data_ptr(), digits.data_ptr(),
-            B, n, k1, N, l, params.pbs_base_log, stream)
-    if err != 0:
-        raise RuntimeError(f"fhe_blind_rotate failed: cudaError_t {err}")
+    _check32(params, bsk, luts, lut_idx, cts_ms)
+    acc = _launch("fhe_blind_rotate", params, bsk, luts, lut_idx, cts_ms,
+                  None)
     blind_rotate_fused.launches += 1
     return acc
 
@@ -175,12 +229,13 @@ def blind_rotate_fused(params: Params, bsk: torch.Tensor, luts: torch.Tensor,
 blind_rotate_fused.launches = 0
 
 
-# ---------------- 64-bit torus ----------------
+BG_CAP = 896      # the JAX package's 32-bit batch-block cap
+BG64_CAP = 512    # and its 64-bit one
 
 
-def _bg_block(B: int, cap: int = 512) -> "int | None":
+def _bg_block(B: int, cap: int) -> "int | None":
     """Largest tb <= cap with B % tb == 0 and tb % 8 == 0; None if none
-    (the JAX package's ``_bg_block``, with its 64-bit cap of 512)."""
+    (the JAX package's ``_bg_block``; caps ``BG_CAP`` / ``BG64_CAP``)."""
     for tb in range(min(cap, B), 7, -8):
         if B % tb == 0:
             return tb
@@ -194,6 +249,113 @@ def _check_bg_tb(B: int, tb: int) -> None:
             f"batch block tb={tb} invalid for B={B}: need 8 | tb, "
             f"tb | B, 0 < tb <= B (every block must cover the batch "
             f"exactly — a remainder would be silently dropped)")
+
+
+def _resolve_tb(B: int, tb: "int | None", cap: int, fallback: str) -> int:
+    if tb is None:
+        tb = _bg_block(B, cap)
+        if tb is None:
+            raise ValueError(
+                f"batch-grid kernel needs B divisible into 8-aligned blocks "
+                f"(got B={B}); use {fallback} instead")
+    _check_bg_tb(B, tb)
+    return tb
+
+
+def blind_rotate_fused_bg(params: Params, bsk: torch.Tensor,
+                          luts: torch.Tensor, lut_idx: torch.Tensor,
+                          cts_ms: torch.Tensor,
+                          tb: "int | None" = None) -> torch.Tensor:
+    """``blind_rotate_fused`` over batch blocks of ``tb`` instances, one
+    block's whole rotation after another (the JAX ``pallas-bg`` backend,
+    block-major as it runs at 32 bits).
+
+    ``tb=None`` takes the largest 8-aligned divisor of B up to 896; a B
+    with none, or an explicit ``tb`` that does not cover B exactly, raises
+    ValueError.  CPU tensors take the plain ``blind_rotate``; CUDA tensors
+    launch the kernel (each call adds one to
+    ``blind_rotate_fused_bg.launches``).
+    """
+    tb = _resolve_tb(cts_ms.shape[0], tb, BG_CAP, "blind_rotate_fused")
+    if not _on_cuda("blind rotation", cts_ms):
+        return blind_rotate(params, bsk, luts, lut_idx, cts_ms)
+    _check32(params, bsk, luts, lut_idx, cts_ms)
+    acc = _launch("fhe_blind_rotate_bg", params, bsk, luts, lut_idx,
+                  cts_ms, tb)
+    blind_rotate_fused_bg.launches += 1
+    return acc
+
+
+blind_rotate_fused_bg.launches = 0
+
+
+def stage1_digits(params: Params, acc: torch.Tensor,
+                  a: torch.Tensor) -> torch.Tensor:
+    """One CMUX step's digits, the contract of ``ops.pbs.stage1_digits``:
+    acc [B, k+1, N] int32, a [B] int32 in [0, 2N) -> [B, (k+1)l, N] int8.
+    CPU tensors take that plain version; CUDA tensors launch the kernel
+    (each call adds one to ``stage1_digits.launches``)."""
+    if not _on_cuda("stage1", acc):
+        return plain.stage1_digits(params, acc, a)
+    _check_params32(params)
+    k1, N = params.glwe_dimension + 1, params.polynomial_size
+    l, B, dev = params.pbs_level, acc.shape[0], acc.device
+    _check("acc", acc, (B, k1, N), torch.int32, dev)
+    _check("a", a, (B,), torch.int32, dev)
+    digits = torch.empty((B, k1 * l, N), dtype=torch.int8, device=dev)
+    _call("fhe_stage1_digits", dev, a.data_ptr(), acc.data_ptr(),
+          digits.data_ptr(), B, k1, N, l, params.pbs_base_log)
+    stage1_digits.launches += 1
+    return digits
+
+
+stage1_digits.launches = 0
+
+
+def external_product_step(params: Params, digits: torch.Tensor,
+                          ggsw_i: torch.Tensor,
+                          acc: torch.Tensor) -> torch.Tensor:
+    """acc + sum_r digits[:, r] (*) ggsw_i[r, c], the contract of
+    ``ops.pbs.external_product_step``: digits [B, (k+1)l, N] int8, ggsw_i
+    [(k+1)l, k+1, N] int32, acc [B, k+1, N] int32 -> a new [B, k+1, N]
+    int32 (acc is not changed).  CPU tensors take that plain version; CUDA
+    tensors launch the kernel (each call adds one to
+    ``external_product_step.launches``)."""
+    if not _on_cuda("external product", acc):
+        return plain.external_product_step(params, digits, ggsw_i, acc)
+    _check_params32(params)
+    k1, N = params.glwe_dimension + 1, params.polynomial_size
+    rows, B, dev = k1 * params.pbs_level, acc.shape[0], acc.device
+    _check("acc", acc, (B, k1, N), torch.int32, dev)
+    _check("digits", digits, (B, rows, N), torch.int8, dev)
+    _check("ggsw_i", ggsw_i, (rows, k1, N), torch.int32, dev)
+    out = torch.empty_like(acc)
+    _call("fhe_external_product_step", dev, digits.data_ptr(),
+          ggsw_i.data_ptr(), acc.data_ptr(), out.data_ptr(), B, k1, N,
+          params.pbs_level)
+    external_product_step.launches += 1
+    return out
+
+
+external_product_step.launches = 0
+
+
+def blind_rotate_steps(params: Params, bsk: torch.Tensor, luts: torch.Tensor,
+                       lut_idx: torch.Tensor,
+                       cts_ms: torch.Tensor) -> torch.Tensor:
+    """The blind rotation one CMUX stage per launch (the JAX ``pallas``
+    backend, ``blind_rotate_pallas``): acc0 in torch, then a host loop
+    over the n steps of ``stage1_digits`` and ``external_product_step``,
+    2n launches.  Same contract as ``ops.pbs.blind_rotate``."""
+    acc = plain.init_accumulator(params, luts, lut_idx, cts_ms)
+    a_steps = cts_ms[:, :params.lwe_dimension].T.contiguous()     # [n, B]
+    for i in range(params.lwe_dimension):
+        digits = stage1_digits(params, acc, a_steps[i])
+        acc = external_product_step(params, digits, bsk[i], acc)
+    return acc
+
+
+# ---------------- 64-bit torus ----------------
 
 
 def _check64(params: Params, bsk, luts, lut_idx, cts_ms) -> None:
@@ -216,27 +378,6 @@ def _check64(params: Params, bsk, luts, lut_idx, cts_ms) -> None:
     _check("bsk", bsk, (n, k1 * l, k1, N), torch.int64, dev)
 
 
-def _launch64(entry: str, params: Params, bsk, luts, lut_idx, cts_ms,
-              tb: "int | None") -> torch.Tensor:
-    k1 = params.glwe_dimension + 1
-    N, n, l = params.polynomial_size, params.lwe_dimension, params.pbs_level
-    B = cts_ms.shape[0]
-    dev = cts_ms.device
-    lib = _load()
-    acc = torch.empty((B, k1, N), dtype=torch.int64, device=dev)
-    digits = torch.empty((tb or B, k1 * l, N), dtype=torch.int32, device=dev)
-    blocks = () if tb is None else (tb,)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = getattr(lib, entry)(
-            cts_ms.data_ptr(), luts.data_ptr(), lut_idx.data_ptr(),
-            bsk.data_ptr(), acc.data_ptr(), digits.data_ptr(),
-            B, *blocks, n, k1, N, l, params.pbs_base_log, stream)
-    if err != 0:
-        raise RuntimeError(f"{entry} failed: cudaError_t {err}")
-    return acc
-
-
 def blind_rotate_fused64(params: Params, bsk: torch.Tensor,
                          luts: torch.Tensor, lut_idx: torch.Tensor,
                          cts_ms: torch.Tensor) -> torch.Tensor:
@@ -248,13 +389,11 @@ def blind_rotate_fused64(params: Params, bsk: torch.Tensor,
     tensors launch the kernel (each call adds one to
     ``blind_rotate_fused64.launches``).
     """
-    if cts_ms.device.type == "cpu":
+    if not _on_cuda("blind rotation", cts_ms):
         return blind_rotate64(params, bsk, luts, lut_idx, cts_ms)
-    if cts_ms.device.type != "cuda":
-        raise ValueError(f"no blind rotation kernel for {cts_ms.device}")
     _check64(params, bsk, luts, lut_idx, cts_ms)
-    acc = _launch64("fhe_blind_rotate64", params, bsk, luts, lut_idx,
-                    cts_ms, None)
+    acc = _launch("fhe_blind_rotate64", params, bsk, luts, lut_idx,
+                  cts_ms, None)
     blind_rotate_fused64.launches += 1
     return acc
 
@@ -276,21 +415,12 @@ def blind_rotate_fused64_bg(params: Params, bsk_rounded: torch.Tensor,
     given; CUDA tensors launch the kernel (each call adds one to
     ``blind_rotate_fused64_bg.launches``).
     """
-    B = cts_ms.shape[0]
-    if tb is None:
-        tb = _bg_block(B)
-        if tb is None:
-            raise ValueError(
-                f"batch-grid kernel needs B divisible into 8-aligned blocks "
-                f"(got B={B}); use blind_rotate_fused64 instead")
-    _check_bg_tb(B, tb)
-    if cts_ms.device.type == "cpu":
+    tb = _resolve_tb(cts_ms.shape[0], tb, BG64_CAP, "blind_rotate_fused64")
+    if not _on_cuda("blind rotation", cts_ms):
         return blind_rotate64(params, bsk_rounded, luts, lut_idx, cts_ms)
-    if cts_ms.device.type != "cuda":
-        raise ValueError(f"no blind rotation kernel for {cts_ms.device}")
     _check64(params, bsk_rounded, luts, lut_idx, cts_ms)
-    acc = _launch64("fhe_blind_rotate64_bg", params, bsk_rounded, luts,
-                    lut_idx, cts_ms, tb)
+    acc = _launch("fhe_blind_rotate64_bg", params, bsk_rounded, luts,
+                  lut_idx, cts_ms, tb)
     blind_rotate_fused64_bg.launches += 1
     return acc
 

@@ -15,11 +15,16 @@ write to a trash slot.
 
 The slab holds torus values as int32 bits at 32 bits and int64 bits at 64
 bits; ciphertexts cross the API as uint32 / uint64 numpy arrays.
+
+``Executor.run_many`` is the serving path: one compiled circuit against C
+contents, every level's active bootstraps packed across the contents and
+cut into launches of the three widths of ``_chunk_sizes``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Dict, List
 
@@ -67,6 +72,8 @@ class CompiledCircuit:
 
 
 MAX_LEVEL_BATCH = 256   # largest PBS batch one compiled-circuit level uses
+WIDE_LEVEL_BATCH = 1024  # run_many's wide launch for big packed levels
+SMALL_LEVEL_BATCH = 64   # run_many's launch for narrow packed levels
 
 
 def _assemble_root(params: Params, val: BitVal,
@@ -93,6 +100,31 @@ def default_min_bucket() -> int:
     """Smallest level width.  8 on every device, which is also the JAX
     package's CPU value, so both packages compile identical level plans."""
     return 8
+
+
+def _chunk_sizes(total: int, use_wide: bool) -> List[int]:
+    """Launch widths for a packed run_many level of `total` active ops, as
+    in the JAX package: full wide launches first, one more padded wide
+    launch if over 3 * MAX_LEVEL_BATCH remain, then MAX_LEVEL_BATCH
+    launches with a SMALL_LEVEL_BATCH or MAX_LEVEL_BATCH tail."""
+    sizes: List[int] = []
+    rem = total
+    if use_wide:
+        sizes += [WIDE_LEVEL_BATCH] * (rem // WIDE_LEVEL_BATCH)
+        rem -= WIDE_LEVEL_BATCH * (rem // WIDE_LEVEL_BATCH)
+        if rem > 3 * MAX_LEVEL_BATCH:
+            sizes.append(WIDE_LEVEL_BATCH)
+            rem = 0
+    if rem:
+        if rem <= SMALL_LEVEL_BATCH:
+            sizes.append(SMALL_LEVEL_BATCH)
+        else:
+            sizes += [MAX_LEVEL_BATCH] * (rem // MAX_LEVEL_BATCH)
+            tail = rem % MAX_LEVEL_BATCH
+            if tail:
+                sizes.append(SMALL_LEVEL_BATCH if tail <= SMALL_LEVEL_BATCH
+                             else MAX_LEVEL_BATCH)
+    return sizes
 
 
 def _bucket(w: int, min_bucket: int = 8) -> int:
@@ -207,9 +239,7 @@ class Executor:
         cache = circuit.__dict__.setdefault("_torch_plans", {})
         key = str(self.device)
         if key not in cache:
-            def dev(a, dtype=torch.int32):
-                return torch.from_numpy(np.ascontiguousarray(a)).to(
-                    self.device, dtype)
+            dev = self._upload
             luts = dev(circuit.luts.view(self._np_s), self._dtype)
             # slot indices are int64, the index type of torch's gathers
             levels = [(dev(lv.in_slots, I64), dev(lv.in_coefs),
@@ -217,6 +247,109 @@ class Executor:
                       for lv in circuit.levels]
             cache[key] = (luts, levels)
         return cache[key]
+
+    def _upload(self, a: np.ndarray, dtype=torch.int32) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device,
+                                                            dtype)
+
+    def _device_chunks_many(self, circuit: CompiledCircuit, C: int,
+                            wide_batch: bool):
+        """The packed run_many launch plan on this executor's device,
+        cached on the circuit per (C, wide_batch, device).
+
+        Only the ACTIVE ops of each level are packed, content after
+        content; a content's slot s lives at c * S + s in the packed slab
+        (S = circuit.num_slots), and inputs with coefficient 0 keep
+        gathering slot 0.  Padded rows gather slot 0 and write the trash
+        slot S - 1."""
+        cache = circuit.__dict__.setdefault("_torch_chunks_many", {})
+        key = (C, bool(wide_batch), str(self.device))
+        if key in cache:
+            return cache[key]
+        S = circuit.num_slots
+        offs = (np.arange(C, dtype=np.int32) * S)[:, None]
+        chunks = []
+        for lv in circuit.levels:
+            act = lv.lut_idx >= 0
+            a_slots, a_coefs = lv.in_slots[act], lv.in_coefs[act]
+            t_slots = np.where(a_coefs[None] != 0,
+                               a_slots[None] + offs[:, None], 0).reshape(-1, 3)
+            t_coefs = np.tile(a_coefs, (C, 1))
+            t_consts = np.tile(lv.consts[act], C)
+            t_lut = np.tile(lv.lut_idx[act], C)
+            t_out = (lv.out_idx[act][None] + offs).reshape(-1)
+            total = t_out.shape[0]
+            sizes = _chunk_sizes(total, wide_batch)
+            pad = sum(sizes) - total
+            t_slots = np.concatenate([t_slots, np.zeros((pad, 3), np.int32)])
+            t_coefs = np.concatenate([t_coefs, np.zeros((pad, 3), np.int32)])
+            t_consts = np.concatenate([t_consts, np.zeros(pad, np.int32)])
+            t_lut = np.concatenate([t_lut, np.full(pad, -1, np.int32)])
+            t_out = np.concatenate([t_out, np.full(pad, S - 1, np.int32)])
+            c0 = 0
+            for w in sizes:
+                sl = slice(c0, c0 + w)
+                c0 += w
+                chunks.append((self._upload(t_slots[sl], I64),
+                               self._upload(t_coefs[sl]),
+                               self._upload(t_consts[sl]),
+                               self._upload(t_lut[sl]),
+                               self._upload(t_out[sl], I64)))
+        cache[key] = chunks
+        return chunks
+
+    def run_many(self, circuit: CompiledCircuit, contents: np.ndarray,
+                 wide_batch: "bool | None" = None) -> np.ndarray:
+        """Match ONE compiled circuit against MANY encrypted contents.
+
+        contents: [C, len, num_blocks, n+1] uint32 (uint64 at 64 bits) ->
+        [C, num_blocks, n+1] ([C, R, num_blocks, n+1] for R roots).  Every
+        level's bootstrap batch spans all C contents (``_device_chunks_many``).
+        ``wide_batch`` adds the WIDE_LEVEL_BATCH launch width for big packed
+        levels (default: on for a CUDA device, off elsewhere;
+        FHE_REGEX_WIDE_BATCH=0|1 overrides).
+        """
+        if getattr(circuit, "multivalue", False):
+            raise NotImplementedError(
+                "multi-value circuits are not ported yet (ROADMAP.md, "
+                "queue 1 item 4)")
+        if wide_batch is None:
+            env = os.environ.get("FHE_REGEX_WIDE_BATCH")
+            wide_batch = (env == "1" if env is not None
+                          else self.device.type == "cuda")
+        params = self.params
+        C = contents.shape[0]
+        n1 = params.lwe_dimension + 1
+        S = circuit.num_slots
+        slab = torch.zeros((C * S, n1), dtype=self._dtype, device=self.device)
+        if contents.size:
+            flat = np.ascontiguousarray(contents.reshape(C, -1, n1),
+                                        dtype=self._np_u)
+            L = flat.shape[1]
+            rows = (np.arange(C)[:, None] * S + 1
+                    + np.arange(L)[None, :]).reshape(-1)
+            slab[self._upload(rows, I64)] = self._upload(
+                flat.reshape(C * L, n1).view(self._np_s), self._dtype)
+        luts, _ = self._device_plan(circuit)
+        for chunk in self._device_chunks_many(circuit, C, wide_batch):
+            self._run_level(slab, luts, *chunk)
+        roots = circuit.all_roots
+        slots = [r.val.slot for r in roots if r.val.sign != 0]
+        if slots:
+            ridx = (np.arange(C)[:, None] * S
+                    + np.asarray(slots)[None, :]).reshape(-1)
+            got = slab[self._upload(ridx, I64)].cpu().numpy().reshape(
+                C, len(slots), n1)
+        out = np.zeros((C, len(roots), params.num_blocks, n1), self._np_u)
+        for ci in range(C):
+            ri = 0
+            for pi, r in enumerate(roots):
+                ct_u = None
+                if r.val.sign != 0:
+                    ct_u = got[ci, ri].view(self._np_u)
+                    ri += 1
+                out[ci, pi] = _assemble_root(params, r.val, ct_u)
+        return out[:, 0] if circuit.roots is None else out
 
     def run(self, circuit: CompiledCircuit, content_blocks: np.ndarray,
             profile: bool = False) -> np.ndarray:

@@ -139,3 +139,25 @@ def test_kernel_wrapper_rejects_other_devices():
                        device="meta")
     with pytest.raises(ValueError, match="no blind rotation kernel"):
         blind_rotate_fused(p, meta, meta, meta, meta)
+
+
+def test_chip_profile_refuses_without_cuda():
+    res = subprocess.run([sys.executable, str(ROOT / "chip_profile.py")],
+                         cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=60)
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+
+
+def test_chip_profile_busy_time_is_a_union():
+    """Overlapping device intervals count once, gaps not at all."""
+    import types
+
+    from chip_profile import busy_us
+
+    def ev(s, e):
+        return types.SimpleNamespace(
+            time_range=types.SimpleNamespace(start=s, end=e))
+
+    assert busy_us([ev(0, 10), ev(5, 12), ev(20, 30), ev(21, 22)]) == 22
+    assert busy_us([]) == 0

@@ -1,0 +1,274 @@
+"""The per-step and batch-grid 32-bit blind rotations of the PyTorch port
+against the JAX package's Pallas kernels #1, #2 and #4, bit for bit.
+
+* The plain ``stage1_digits`` / ``external_product_step`` of
+  ``fhe_regex_tpu_torch.ops.pbs`` equal the Pallas ``_stage1_kernel`` /
+  ``_ext_product_kernel`` (interpret mode, as the JAX package's own tests
+  run them on the CPU).
+* The ``cuda`` backend's rotation (``pbs_cuda.blind_rotate_steps``) and the
+  ``cuda-bg`` rotation (``pbs_cuda.blind_rotate_fused_bg``), on their CPU
+  routes, equal JAX ``pallas`` and ``pallas-bg`` (two batch blocks and one).
+* The kernel wrappers take the plain version on CPU tensors, launch
+  nothing there, and validate batch blocks as the JAX package does.
+
+Inputs come from numpy seeds and the shared ``keys`` / ``noisy_keys``
+fixtures; tolerance is zero (integer arithmetic mod 2^32).  The CUDA
+kernels themselves are held against these plain versions on the card by
+``chip_smoke.py``.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fhe_regex_tpu.crypto import lwe as jlwe
+from fhe_regex_tpu.crypto.golden import make_lut_poly
+from fhe_regex_tpu.ops import pbs as jpbs
+from fhe_regex_tpu.ops import pbs_pallas
+from fhe_regex_tpu.params import TEST_PARAMS, TEST_PARAMS_NOISY
+
+from fhe_regex_tpu_torch.convert import server_key_from_jax
+from fhe_regex_tpu_torch.ops import pbs as tpbs
+from fhe_regex_tpu_torch.ops import pbs_cuda
+
+torch.set_num_threads(2)
+
+
+def _t(a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
+
+
+def _j(a: np.ndarray):
+    return jnp.asarray(np.ascontiguousarray(a).view(np.int32))
+
+
+def _random_u32(rng, shape) -> np.ndarray:
+    return rng.integers(0, 1 << 32, size=shape, dtype=np.uint64).astype(np.uint32)
+
+
+def _port_params(params):
+    from fhe_regex_tpu_torch.params import get_params
+    return get_params(params.name)
+
+
+def _rotations(rng, B, N):
+    """Rotation amounts in [0, 2N), edges first."""
+    edges = np.array([0, 1, N - 1, N, N + 1, 2 * N - 1], np.int32)
+    return np.concatenate([edges, rng.integers(0, 2 * N, size=B)])[:B].astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("B", [8, 32, 5])
+def test_stage1_digits_matches_pallas(B):
+    """B = 32 takes the kernel's int8 output, 8 and 5 its int32 one: the
+    values agree either way, rows (component, level), MSD first."""
+    P = TEST_PARAMS_NOISY
+    N = P.polynomial_size
+    rng = np.random.default_rng(B)
+    acc = _random_u32(rng, (B, P.glwe_dimension + 1, N))
+    acc[0, 0, :4] = [0, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF]
+    a = _rotations(rng, B, N)
+    want = np.asarray(pbs_pallas.stage1_digits(P, _j(acc), jnp.asarray(a)))
+    got = tpbs.stage1_digits(_port_params(P), _t(acc), torch.from_numpy(a))
+    rows = (P.glwe_dimension + 1) * P.pbs_level
+    assert got.dtype == torch.int8 and got.shape == (B, rows, N)
+    assert np.array_equal(got.numpy().astype(np.int32).reshape(B, rows * N),
+                          want.astype(np.int32))
+
+
+@pytest.mark.parametrize("B", [8, 32])
+def test_external_product_step_matches_pallas(B):
+    P = TEST_PARAMS_NOISY
+    N, k1 = P.polynomial_size, P.glwe_dimension + 1
+    rows = k1 * P.pbs_level
+    rng = np.random.default_rng(100 + B)
+    half = 1 << (P.pbs_base_log - 1)
+    digits = rng.integers(-half, half + 1, size=(B, rows, N)).astype(np.int8)
+    digits[0, 0, :2] = [-half, half]
+    ggsw = _random_u32(rng, (1, rows, k1, N))
+    acc = _random_u32(rng, (B, k1, N))
+    quad = pbs_pallas.prepare_bsk_pallas(P, ggsw)[0]
+    want = pbs_pallas.external_product_step(
+        P, jnp.asarray(digits.reshape(B, rows * N).astype(np.int32)),
+        pbs_pallas._group_quad(P, jnp.asarray(quad)), _j(acc), jnp.int8,
+        flat_digits=True)
+    acc_t = _t(acc)
+    got = tpbs.external_product_step(_port_params(P),
+                                     torch.from_numpy(digits), _t(ggsw[0]),
+                                     acc_t)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    assert np.array_equal(acc_t.numpy(), acc.view(np.int32))   # untouched
+
+
+def _msgs_and_luts(params, keys, B, seed):
+    ck, sk = keys
+    rng = np.random.default_rng(seed)
+    msgs = rng.integers(0, 16, size=B)
+    cts = np.stack([jlwe.encrypt_lwe(params, ck.lwe_key, int(m), ck.rng)
+                    for m in msgs])
+    fs = [lambda x: (3 * x + 1) % 16, lambda x: (x * 7 + 2) % 16]
+    luts = np.stack([make_lut_poly(params, f) for f in fs])
+    idx = (np.arange(B) % 2).astype(np.int32)
+    return msgs, fs, cts, luts, idx
+
+
+def _port_pbs(params, sk, rotate, luts, idx, cts):
+    """The port's PBS on the CPU with `rotate` as its blind rotation."""
+    tsk = server_key_from_jax(sk)
+    dev = tpbs.prepare_server_key(tsk.params, tsk, "cpu", "torch")
+    ms = tpbs.mod_switch(tsk.params, _t(cts))
+    acc = rotate(tsk.params, dev.bsk, _t(luts), torch.from_numpy(idx), ms)
+    return tpbs.key_switch(tsk.params, dev.ksk,
+                           tpbs.sample_extract(tsk.params, acc))
+
+
+@pytest.mark.parametrize("fixture,params", [("keys", TEST_PARAMS),
+                                            ("noisy_keys", TEST_PARAMS_NOISY)])
+def test_blind_rotate_steps_matches_pallas_backend(request, fixture, params):
+    """The ``cuda`` backend's rotation == JAX ``pbs_batch_pallas``."""
+    keys = request.getfixturevalue(fixture)
+    ck, sk = keys
+    msgs, fs, cts, luts, idx = _msgs_and_luts(params, keys, 8, seed=3)
+    want = jpbs.make_pbs_fn(jpbs.prepare_server_key(params, sk, "pallas"))(
+        _j(luts), jnp.asarray(idx), _j(cts))
+    got = _port_pbs(params, sk, pbs_cuda.blind_rotate_steps, luts, idx, cts)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    out = got.numpy().view(np.uint32)
+    dec = [jlwe.decrypt_lwe(params, ck.lwe_key, out[i]) for i in range(8)]
+    assert dec == [fs[idx[i]](int(m)) for i, m in enumerate(msgs)]
+
+
+@pytest.mark.parametrize("tb", [16, 8])
+def test_blind_rotate_bg_matches_pallas_bg(noisy_keys, monkeypatch, tb):
+    """The ``cuda-bg`` rotation == JAX ``pallas-bg`` at B = 16, in one
+    batch block (tb = 16, the default) and in two (tb = 8)."""
+    P = TEST_PARAMS_NOISY
+    ck, sk = noisy_keys
+    msgs, fs, cts, luts, idx = _msgs_and_luts(P, noisy_keys, 16, seed=tb)
+    monkeypatch.setenv("FHE_REGEX_BG_TB", str(tb))
+    want = jpbs.make_pbs_fn(jpbs.prepare_server_key(P, sk, "pallas-bg"))(
+        _j(luts), jnp.asarray(idx), _j(cts))
+
+    def rotate(*args):
+        return pbs_cuda.blind_rotate_fused_bg(*args, tb=tb)
+
+    got = _port_pbs(P, sk, rotate, luts, idx, cts)
+    assert np.array_equal(got.numpy(), np.asarray(want))
+    out = got.numpy().view(np.uint32)
+    dec = [jlwe.decrypt_lwe(P, ck.lwe_key, out[i]) for i in range(16)]
+    assert dec == [fs[idx[i]](int(m)) for i, m in enumerate(msgs)]
+
+
+@pytest.mark.parametrize("B", [8, 16, 24, 40, 96, 896, 1024, 1792, 3584,
+                               1000, 12, 4, 7])
+@pytest.mark.parametrize("cap", [pbs_cuda.BG_CAP, pbs_cuda.BG64_CAP])
+def test_bg_block_matches_jax(B, cap):
+    assert pbs_cuda._bg_block(B, cap) == pbs_pallas._bg_block(B, cap)
+
+
+@pytest.mark.parametrize("B,tb", [(16, 8), (16, 16), (16, 12), (16, 32),
+                                  (24, 16), (24, 0), (24, -8), (1024, 512)])
+def test_check_bg_tb_matches_jax(B, tb):
+    def raises(fn):
+        try:
+            fn(B, tb)
+        except ValueError:
+            return True
+        return False
+
+    assert (raises(pbs_cuda._check_bg_tb)
+            == raises(pbs_pallas._check_bg_tb))
+
+
+def _rotation_args(noisy_keys, B, seed):
+    P = TEST_PARAMS_NOISY
+    _, sk = noisy_keys
+    _, _, cts, luts, idx = _msgs_and_luts(P, noisy_keys, B, seed)
+    tsk = server_key_from_jax(sk)
+    ms = tpbs.mod_switch(tsk.params, _t(cts))
+    return (tsk.params, _t(tsk.bsk), _t(luts), torch.from_numpy(idx), ms)
+
+
+def test_bg_wrapper_blocks(noisy_keys):
+    """Default tb at 32 bits is the JAX package's (cap 896); a batch with
+    no 8-aligned block, or a bad explicit tb, raises as in JAX."""
+    args = _rotation_args(noisy_keys, 16, seed=7)
+    before = pbs_cuda.blind_rotate_fused_bg.launches
+    want = tpbs.blind_rotate(*args)
+    for tb in (None, 16, 8):
+        assert torch.equal(pbs_cuda.blind_rotate_fused_bg(*args, tb=tb), want)
+    assert pbs_cuda.blind_rotate_fused_bg.launches == before
+    with pytest.raises(ValueError, match="invalid for B=16"):
+        pbs_cuda.blind_rotate_fused_bg(*args, tb=12)
+    # B = 4 has no 8-aligned block; at B = 12 both packages pick tb = 12
+    # and then refuse it
+    for B, msg in ((4, "8-aligned blocks"), (12, "invalid for B=12")):
+        odd = _rotation_args(noisy_keys, B, seed=B)
+        with pytest.raises(ValueError, match=msg):
+            pbs_cuda.blind_rotate_fused_bg(*odd)
+        with pytest.raises(ValueError, match=msg):
+            pbs_pallas.blind_rotate_fused_bg(
+                TEST_PARAMS_NOISY, jnp.zeros((1, 1), jnp.int32), None, None,
+                jnp.zeros((B, TEST_PARAMS_NOISY.lwe_dimension + 1),
+                          jnp.int32))
+
+
+def test_step_wrappers_take_plain_path_on_cpu(noisy_keys):
+    """On CPU tensors the per-step wrappers are the plain versions and
+    launch nothing; the rotation built from them equals ``blind_rotate``."""
+    args = _rotation_args(noisy_keys, 5, seed=9)
+    params, bsk, luts, idx, ms = args
+    counts = (pbs_cuda.stage1_digits.launches,
+              pbs_cuda.external_product_step.launches)
+    acc = tpbs.init_accumulator(params, luts, idx, ms)
+    a = ms[:, 0].contiguous()
+    d = pbs_cuda.stage1_digits(params, acc, a)
+    assert torch.equal(d, tpbs.stage1_digits(params, acc, a))
+    nxt = pbs_cuda.external_product_step(params, d, bsk[0], acc)
+    assert torch.equal(nxt, tpbs.external_product_step(params, d, bsk[0],
+                                                       acc))
+    assert torch.equal(pbs_cuda.blind_rotate_steps(*args),
+                       tpbs.blind_rotate(*args))
+    assert (pbs_cuda.stage1_digits.launches,
+            pbs_cuda.external_product_step.launches) == counts
+
+
+def test_step_wrappers_reject_other_devices():
+    from fhe_regex_tpu_torch.params import get_params
+
+    p = get_params("TEST_PARAMS")
+    meta = torch.empty((2, 2, p.polynomial_size), dtype=torch.int32,
+                       device="meta")
+    with pytest.raises(ValueError, match="no stage1 kernel"):
+        pbs_cuda.stage1_digits(p, meta, meta)
+    with pytest.raises(ValueError, match="no external product kernel"):
+        pbs_cuda.external_product_step(p, meta, meta, meta)
+    ms = torch.empty((8, p.lwe_dimension + 1), dtype=torch.int32,
+                     device="meta")
+    with pytest.raises(ValueError, match="no blind rotation kernel"):
+        pbs_cuda.blind_rotate_fused_bg(p, ms, ms, ms, ms)
+
+
+@pytest.mark.parametrize("backend,device,want", [
+    ("cuda", "cuda", "cuda"),
+    ("cuda-bg", "cuda:0", "cuda-bg"),
+    (None, "cuda", "cuda-fused"),
+])
+def test_resolve_new_backends(backend, device, want):
+    from fhe_regex_tpu_torch.params import get_params
+
+    p = get_params("TPU_MESSAGE_2_CARRY_2")
+    assert tpbs.resolve_backend(backend, device, p) == want
+
+
+@pytest.mark.parametrize("backend", ["cuda", "cuda-bg"])
+def test_new_backends_need_cuda_and_32_bits(keys, backend):
+    from fhe_regex_tpu_torch.params import get_params
+
+    tsk = server_key_from_jax(keys[1])
+    with pytest.raises(ValueError, match="needs a CUDA device"):
+        tpbs.prepare_server_key(tsk.params, tsk, "cpu", backend)
+    with pytest.raises(ValueError, match="needs a 32-bit"):
+        tpbs.resolve_backend(backend, "cuda",
+                             get_params("TPU64_MESSAGE_2_CARRY_2"))
