@@ -11,13 +11,19 @@ once under ``torch.profiler``:
    the per-step backend ``cuda`` (two launches per CMUX step, enqueued
    from Python);
 2. ``has_match_many`` on the configuration of ``benchmarks/serving.py``
-   (32 contents of 16 characters, ``/abc/``) on ``cuda-bg``.
+   (32 contents of 16 characters, ``/abc/``) on ``cuda-bg``, on its
+   default (multi-value) plan.
 
 For each it prints the wall time of the profiled call, the device's busy
 time (the union of its kernel and copy intervals), the idle share
-1 - busy / wall, and the device time by kernel name.  The profiler's own
+1 - busy / wall, and the device time by kernel name with its share of the
+busy time.  The profiler's own
 cost lengthens the wall time a little, so the idle share is an upper
-bound.  The last line is a JSON object with these numbers.
+bound.  Then the blind rotation's time by batch width (B = 8 ... 512,
+CUDA events, 2 samples after a warm call) on the default backend of each
+torus width (``cuda-fused``, ``cuda64-bg``), on the production keys and
+random mod-switched inputs.  The last line is a JSON object with these
+numbers.
 """
 
 from __future__ import annotations
@@ -71,11 +77,47 @@ def profiled(label: str, fn) -> dict:
     print(f"{label}: wall {wall:.3f} s, device busy {busy:.3f} s, idle "
           f"share {1 - busy / wall:.3f}", flush=True)
     for name, (ms, count) in top:
-        print(f"  {name[:60]:60s} {ms:10.1f} ms  {count:6d} launches",
-              flush=True)
+        print(f"  {name[:60]:60s} {ms:10.1f} ms {ms / 1e3 / busy:6.1%} "
+              f"{count:6d} launches", flush=True)
     return {"label": label, "wall_s": wall, "busy_s": busy,
             "idle_share": 1 - busy / wall,
             "top": [[n, ms, c] for n, (ms, c) in top]}
+
+
+WIDTHS = (8, 16, 32, 64, 128, 256, 512)
+
+
+def widths(params, sk) -> dict:
+    """ms per blind rotation on the width's default CUDA backend, by B."""
+    from fhe_regex_tpu_torch.ops.pbs import prepare_server_key, rotation_fn
+
+    dk = prepare_server_key(params, sk, "cuda")
+    rotate = rotation_fn(dk.backend)
+    N, n = params.polynomial_size, params.lwe_dimension
+    gen = torch.Generator().manual_seed(5)
+    luts = torch.randint(-2**31, 2**31, (1, N), generator=gen,
+                         dtype=torch.int64)
+    luts = luts.to("cuda", dk.bsk.dtype)
+    out = {}
+    for B in WIDTHS:
+        ms = torch.randint(0, 2 * N, (B, n + 1), generator=gen,
+                           dtype=torch.int32).to("cuda")
+        idx = torch.zeros(B, dtype=torch.int32, device="cuda")
+        rotate(params, dk.bsk, luts, idx, ms)          # warm
+        times = []
+        for _ in range(2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            rotate(params, dk.bsk, luts, idx, ms)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        out[B] = times
+    print(f"rotation ms by width, {params.name} on {dk.backend}: "
+          + ", ".join(f"B={B} {' / '.join(f'{t:.3f}' for t in v)}"
+                      for B, v in out.items()), flush=True)
+    return out
 
 
 def main() -> int:
@@ -114,7 +156,9 @@ def main() -> int:
             raise AssertionError("has_match_many: wrong bits on cuda-bg")
 
     runs.append(profiled(f"has_match_many C={len(cts)} on cuda-bg", serve))
-    print(json.dumps({"device": smi, "runs": runs}))
+    table = {name: widths(get_params(name), smoke._keys(get_params(name))[1])
+             for name in (smoke.FULL, smoke.FULL64)}
+    print(json.dumps({"device": smi, "runs": runs, "widths": table}))
     return 0
 
 

@@ -29,25 +29,33 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
 7. 64-bit throughput: one decrypt-checked PBS batch at B = 256 on
    ``cuda64-bg``;
 8. the per-step kernels (backend ``cuda``) vs plain at TPU_MESSAGE_2_CARRY_2,
-   B = 8 and 256, tolerance zero: one ``stage1_digits`` and one
-   ``external_product_step`` launch, each timed with CUDA events beside its
-   plain version and, for the external product, beside one float64
-   ``torch.matmul`` with the Toeplitz matrix prebuilt (the library call that
-   computes the same product); then a whole ``blind_rotate_steps`` rotation
-   at B = 8 and 256, bit-equal to ``blind_rotate_fused``;
+   B = 8, 37 and 256, tolerance zero: one ``stage1_digits`` and one
+   ``external_product_step`` launch (the int8 tensor-core external product
+   that #3 and #4 run too), each timed with CUDA events at B = 8 and 256
+   beside its plain version and, for the external product, beside one
+   float64 ``torch.matmul`` with the Toeplitz matrix prebuilt (the library
+   call that computes the same product); then a whole
+   ``blind_rotate_steps`` rotation at B = 8 and 256, bit-equal to
+   ``blind_rotate_fused``;
 9. the batch-grid kernel (``cuda-bg``): B = 256 in one block and in two
    (tb = 256, 128), equal to ``cuda-fused``; B = 1024 at the default tb,
    bit-equal to the plain rotation, timed beside ``cuda-fused``;
 10. the serving path at TPU_MESSAGE_2_CARRY_2: ``has_match_many`` on the
    configuration of ``benchmarks/serving.py`` (32 contents of 16
-   characters, ``/abc/``, the odd ones not matching) on ``cuda-bg`` cold
-   and warm and on ``cuda-fused`` once, equal ciphertexts, every bit
-   decrypted; then ``has_match_many_patterns``, ``has_match_many_positions``,
+   characters, ``/abc/``, the odd ones not matching), whose default plan
+   is multi-value (fewer rotations than bootstraps, asserted), on
+   ``cuda-bg`` cold and warm and on ``cuda-fused`` once, equal
+   ciphertexts, every bit decrypted, then once on the classic plan
+   (``multivalue=False``); one multi-value ``has_match`` request on
+   ``cuda-fused`` equal to the plain backend on the card; then
+   ``has_match_many_patterns``, ``has_match_many_positions``,
    ``has_match_long`` (256 characters, five windows) and ``count_matches``
    on the default backend, each decrypt-checked; then one request through
    ``has_match(backend="cuda")``, equal to its ``cuda-fused`` result;
 11. 64-bit serving: ``has_match_many`` at TPU64_MESSAGE_2_CARRY_2 on
-   ``cuda64-bg``, 8 contents, decrypt-checked.
+   ``cuda64-bg`` (multi-value plan), 8 contents, decrypt-checked; one
+   multi-value ``has_match`` request on ``cuda64`` equal to ``torch64`` on
+   the card, and on ``cuda64-bg`` decrypt-checked.
 
 Before each main path every launch count is set to 0; just after, the
 path's kernel must show launches.  Any failure raises.  The line before
@@ -326,12 +334,13 @@ def same_on_cpu(port, params, ck, sk):
 def step_kernels(params, bsk, pbs_cuda, plain):
     """Phase 8, first half: one launch each of #2 (``stage1_digits``) and
     #1 (``external_product_step``) against the plain versions on the same
-    card inputs, tolerance zero, at B = 8 and 256, with their times (CUDA
-    events, 3 samples) and the float64 matmul's.  Returns {B: numbers}."""
+    card inputs, tolerance zero, at B = 8, 37 (a ragged batch tile) and
+    256, with their times at 8 and 256 (CUDA events, 3 samples) and the
+    float64 matmul's.  Returns {B: numbers}."""
     k1, N = params.glwe_dimension + 1, params.polynomial_size
     rows = k1 * params.pbs_level
     out = {}
-    for B in (8, 256):
+    for B in (8, 37, 256):
         rng = np.random.default_rng(300 + B)
         acc = torch.from_numpy(rng.integers(-2**31, 2**31, size=(B, k1, N))
                                .astype(np.int32)).to(DEVICE)
@@ -358,6 +367,10 @@ def step_kernels(params, bsk, pbs_cuda, plain):
                              .to(torch.int64).reshape(B, k1, N))
         if not torch.equal(lib, want):
             raise AssertionError("the float64 matmul does not compute #1")
+        if B == 37:
+            print(f"step kernels {params.name} B={B}: equal plain",
+                  flush=True)
+            continue
         t = dict(
             s1=_event_ms(lambda: pbs_cuda.stage1_digits(params, acc, a)),
             s1_plain=_event_ms(lambda: plain.stage1_digits(params, acc, a)),
@@ -438,14 +451,65 @@ def _want_bits(got, want, what):
         raise AssertionError(f"{what}: decrypted {got}, want {want}")
 
 
+def _serve_plan(port, params, sk, C):
+    """The circuit ``has_match_many`` compiles for the serving
+    configuration (the packed paths' auto rule), which must be the
+    multi-value plan, and the rotation rows its C-content run launches."""
+    from fhe_regex_tpu_torch.regex.engine import compile_match
+
+    circuit = port._compile_auto_mv(params, *compile_match(
+        len(SERVE[0]), SERVE_PATTERN, fold="tree"), None)
+    if not (circuit.multivalue
+            and circuit.rotation_count < circuit.pbs_count):
+        raise AssertionError(f"has_match_many {params.name}: the default "
+                             f"plan is not multi-value ({circuit.pbs_count} "
+                             f"bootstraps, {circuit.rotation_count} "
+                             f"rotations)")
+    plan = port.executor_for(sk, device=DEVICE)._device_chunks_many_mv(
+        circuit, C, True)
+    return circuit, sum(ch[0].shape[0] for rot, _ in plan for ch in rot)
+
+
+def mv_request(port, pbs_cuda, params, ck, sk, backend, plain_backend,
+               kernel, also=None):
+    """One multi-value ``has_match`` request (``case_insensitive_classes``)
+    on a kernel backend, bit-equal to the plain backend on the card, with
+    the kernel's launches; ``also``: one more kernel backend,
+    decrypt-checked."""
+    name, pattern, content, bit = REQUESTS[2]
+    ct = port.encrypt_str(ck, content)
+    _reset_counts(pbs_cuda)
+    got, secs = _timed(lambda: port.has_match(
+        sk, ct, pattern, fold="tree", device=DEVICE, backend=backend,
+        multivalue=True))
+    launches = kernel.launches
+    want = port.has_match(sk, ct, pattern, fold="tree", device=DEVICE,
+                          backend=plain_backend, multivalue=True)
+    _want_bits(port.decrypt(ck, got), bit, f"{name} multivalue")
+    if not np.array_equal(got, want) or launches <= 0:
+        raise AssertionError(f"{name} multivalue {params.name}: {backend} "
+                             f"!= {plain_backend}, or {kernel.__name__} "
+                             f"launches {launches}")
+    extra = ""
+    if also is not None:
+        r = port.has_match(sk, ct, pattern, fold="tree", device=DEVICE,
+                           backend=also, multivalue=True)
+        _want_bits(port.decrypt(ck, r), bit, f"{name} multivalue {also}")
+        extra = f"; on {also} right"
+    print(f"multi-value request {params.name} {name} on {backend}: "
+          f"{secs:.3f} s, equal to {plain_backend}, {kernel.__name__} "
+          f"launches {launches}{extra}", flush=True)
+
+
 def serving(port, pbs_cuda, params, ck, sk, literal):
     """Phase 10: the packed serving paths at the 32-bit production set;
     ``literal`` is (name, pattern, content, bit, ciphertext, cuda-fused
     result) of one request of phase 3.  Returns the launches of #4, #2 and
-    #1 on their main paths."""
+    #1 on their main paths and the serving numbers."""
     C = len(SERVE)
     cts = np.stack([port.encrypt_str(ck, c) for c in SERVE])
     want = [1 - i % 2 for i in range(C)]
+    circuit, rot_rows = _serve_plan(port, params, sk, C)
     _reset_counts(pbs_cuda)
     res, cold = _timed(lambda: port.has_match_many(
         sk, cts, SERVE_PATTERN, backend="cuda-bg", device=DEVICE))
@@ -462,12 +526,23 @@ def serving(port, pbs_cuda, params, ck, sk, literal):
     if bg_launches <= 0:
         raise AssertionError("has_match_many: blind_rotate_fused_bg was not "
                              "launched")
+    res4, classic_s = _timed(lambda: port.has_match_many(
+        sk, cts, SERVE_PATTERN, backend="cuda-fused", device=DEVICE,
+        multivalue=False))
+    _want_bits([port.decrypt(ck, x) for x in res4], want,
+               "has_match_many classic")
     print(f"serving {params.name}: has_match_many C={C} x "
-          f"{len(SERVE[0])} chars {SERVE_PATTERN}: cuda-bg cold "
+          f"{len(SERVE[0])} chars {SERVE_PATTERN}, multi-value plan "
+          f"({circuit.pbs_count} bootstraps, {circuit.rotation_count} "
+          f"rotations per content; {rot_rows} rotation rows): cuda-bg cold "
           f"{cold:.3f} s, warm {warm:.3f} s ({C / warm:.2f} contents/s), "
           f"cuda-fused {fused_s:.3f} s ({C / fused_s:.2f} contents/s); "
           f"blind_rotate_fused_bg launches {bg_launches}; all {C} bits "
-          f"right, ciphertexts equal", flush=True)
+          f"right, ciphertexts equal; classic plan on cuda-fused "
+          f"{classic_s:.3f} s ({C / classic_s:.2f} contents/s), right",
+          flush=True)
+    mv_request(port, pbs_cuda, params, ck, sk, "cuda-fused", "torch",
+               pbs_cuda.blind_rotate_fused, also="cuda-bg")
 
     four = cts[:4]
     pats = ["/abc/", "/aqc/", "/^x{5}a/"]
@@ -517,9 +592,12 @@ def serving(port, pbs_cuda, params, ck, sk, literal):
 
 def serving64(port, pbs_cuda, params, ck, sk):
     """Phase 11: has_match_many at the 64-bit production set on the default
-    backend (``cuda64-bg``), 8 contents, decrypt-checked."""
+    backend (``cuda64-bg``, the multi-value plan), 8 contents,
+    decrypt-checked; one multi-value request on ``cuda64`` against
+    ``torch64`` and on ``cuda64-bg``."""
     C = 8
     cts = np.stack([port.encrypt_str(ck, c) for c in SERVE[:C]])
+    circuit, _ = _serve_plan(port, params, sk, C)
     _reset_counts(pbs_cuda)
     res, secs = _timed(lambda: port.has_match_many(sk, cts, SERVE_PATTERN,
                                                    device=DEVICE))
@@ -529,9 +607,13 @@ def serving64(port, pbs_cuda, params, ck, sk):
     if res.dtype != np.uint64 or launches <= 0:
         raise AssertionError(f"has_match_many 64-bit: dtype {res.dtype}, "
                              f"blind_rotate_fused64_bg launches {launches}")
-    print(f"serving {params.name}: has_match_many C={C} on cuda64-bg "
-          f"{secs:.3f} s ({C / secs:.2f} contents/s), "
-          f"blind_rotate_fused64_bg launches {launches}, right", flush=True)
+    print(f"serving {params.name}: has_match_many C={C} on cuda64-bg, "
+          f"multi-value plan ({circuit.rotation_count} rotations for "
+          f"{circuit.pbs_count} bootstraps per content): {secs:.3f} s "
+          f"({C / secs:.2f} contents/s), blind_rotate_fused64_bg launches "
+          f"{launches}, right", flush=True)
+    mv_request(port, pbs_cuda, params, ck, sk, "cuda64", "torch64",
+               pbs_cuda.blind_rotate_fused64, also="cuda64-bg")
 
 
 def main() -> int:

@@ -11,9 +11,11 @@ rotation is a hand-written kernel of ``ops/pbs_cuda.py``.  Both torus widths
 run: 32 bits (``TPU_MESSAGE_2_CARRY_2``, the default) and 64 bits
 (``TPU64_MESSAGE_2_CARRY_2``), where ciphertexts are uint64.
 
-The port compiles the classic (one rotation per bootstrap) plan only:
-``multivalue=True`` raises NotImplementedError until multi-value
-bootstrapping is ported (ROADMAP.md, queue 1 item 4).
+Multi-value bootstrapping (``ops/mv.py``: ops sharing an input share one
+blind rotation) follows the JAX package's defaults: ``multivalue=None``
+picks it automatically on the packed paths when it saves enough rotations
+(``_compile_auto_mv``) and means the classic plan elsewhere;
+``multivalue=True`` / ``False`` force either plan.
 """
 
 from __future__ import annotations
@@ -38,7 +40,9 @@ from fhe_regex_tpu_torch.regex.circuit import CircuitBuilder, Node
 from fhe_regex_tpu_torch.regex.engine import BranchBudgetExceeded, compile_match
 from fhe_regex_tpu_torch.regex.executor import (MAX_LEVEL_BATCH,
                                                 CompiledCircuit, Executor,
-                                                _bucket, compile_circuit,
+                                                MvMarginError, _bucket,
+                                                active_bsk_drop,
+                                                compile_circuit,
                                                 default_min_bucket)
 from fhe_regex_tpu_torch.ops.pbs import prepare_server_key, resolve_backend
 
@@ -90,12 +94,79 @@ def _resolve_device(device: "torch.device | str | None") -> torch.device:
     return torch.device("cuda")
 
 
-def _classic(multivalue: Optional[bool]) -> None:
-    """The port compiles the classic plan: multivalue None/False only."""
-    if multivalue:
-        raise NotImplementedError(
-            "multi-value bootstrapping is not ported yet (ROADMAP.md, "
-            "queue 1 item 4); pass multivalue=None or False")
+def _resolve_multivalue(multivalue: Optional[bool],
+                        packed: bool = False) -> Optional[bool]:
+    """multivalue default: explicit arg > FHE_REGEX_MULTIVALUE env > auto,
+    as the JAX package resolves it.
+
+    The multi-value plan shares blind rotations between ops with identical
+    inputs: fewer rotations, identical decrypted results.  On the PACKED
+    serving paths (levels packed across contents) time follows the
+    rotation count, so there it is chosen automatically (None: decide
+    from the compiled circuit, ``_compile_auto_mv``); elsewhere the default
+    is the classic plan."""
+    import os
+
+    if multivalue is not None:
+        return bool(multivalue)
+    env = os.environ.get("FHE_REGEX_MULTIVALUE")
+    if env == "1":
+        return True
+    if env == "0":
+        return False
+    return None if packed else False
+
+
+# Minimum fraction of blind rotations a compiled circuit must save for the
+# packed serving paths to choose the multi-value plan (the JAX package's
+# value).  Env override: FHE_REGEX_MV_MIN_SAVINGS.
+MV_AUTO_MIN_SAVINGS = 0.15
+
+
+def _compile_auto_mv(params: Params, builder, roots, multivalue, **kw):
+    """compile_circuit with the packed-path multivalue auto-default.
+
+    multivalue True/False compiles that plan directly.  None ("auto")
+    compiles the multi-value plan first and keeps it when the rotation
+    savings clear MV_AUTO_MIN_SAVINGS; otherwise (also when a LUT factor
+    fails the >=5 sigma margin check) compiles classic."""
+    import os
+
+    if multivalue is not None:
+        return compile_circuit(params, builder, roots, multivalue=multivalue,
+                               **kw)
+    try:
+        mv_c = compile_circuit(params, builder, roots, multivalue=True, **kw)
+    except MvMarginError as e:
+        logger.info("mv auto: falling back to classic plan (%s)", e)
+        return compile_circuit(params, builder, roots, multivalue=False, **kw)
+    raw = os.environ.get("FHE_REGEX_MV_MIN_SAVINGS")
+    try:
+        threshold = (float(raw) if raw is not None
+                     else MV_AUTO_MIN_SAVINGS)
+    except ValueError:
+        logger.warning("bad FHE_REGEX_MV_MIN_SAVINGS=%r; using default %.2f",
+                       raw, MV_AUTO_MIN_SAVINGS)
+        threshold = MV_AUTO_MIN_SAVINGS
+    pbs = mv_c.pbs_count
+    if pbs and (1.0 - mv_c.rotation_count / pbs) >= threshold:
+        return mv_c
+    return compile_circuit(params, builder, roots, multivalue=False, **kw)
+
+
+def _compile(server_key: ServerKey, builder, roots, backend, device,
+             multivalue: Optional[bool], packed: bool) -> CompiledCircuit:
+    """An entry point's circuit: the plan ``multivalue`` resolves to (auto
+    on the packed paths), its noise margin checked at the key drop of the
+    backend that will run it."""
+    params = server_key.params
+    kw = dict(min_bucket=default_min_bucket(),
+              bsk_drop=active_bsk_drop(params, backend,
+                                       _resolve_device(device)))
+    mv = _resolve_multivalue(multivalue, packed)
+    if packed:
+        return _compile_auto_mv(params, builder, roots, mv, **kw)
+    return compile_circuit(params, builder, roots, multivalue=mv, **kw)
 
 
 def encrypt_str(client_key: ClientKey, s: str) -> np.ndarray:
@@ -160,16 +231,16 @@ def has_match(server_key: ServerKey, ct_content: np.ndarray, pattern: str,
     devices, see ``ops.pbs.resolve_backend``); ``fold='tree'`` replaces the
     reference's sequential OR fold with a log-depth tree (same decrypted
     result, far lower latency); ``branch_budget`` bounds variant expansion
-    with a clean BranchBudgetExceeded; ``multivalue`` must be None or
-    False (the classic plan).
+    with a clean BranchBudgetExceeded; ``multivalue=True`` shares blind
+    rotations between ops with the same input (default: the classic plan,
+    or FHE_REGEX_MULTIVALUE=1).
     """
-    _classic(multivalue)
     params = server_key.params
     builder, root = compile_match(len(ct_content), pattern,
                                   num_blocks=params.num_blocks, fold=fold,
                                   branch_budget=branch_budget)
-    circuit = compile_circuit(params, builder, root,
-                              min_bucket=default_min_bucket())
+    circuit = _compile(server_key, builder, root, backend, device,
+                       multivalue, packed=False)
     executor = executor_for(server_key, backend, device)
     result = executor.run(circuit, np.ascontiguousarray(ct_content))
     logger.info(
@@ -198,27 +269,22 @@ def has_match_many(server_key: ServerKey, ct_contents, pattern: str,
     bootstrap batch spans all contents (``Executor.run_many``).  Returns
     [C, num_blocks, n+1].  ``wide_batch`` enables the WIDE_LEVEL_BATCH
     launch width for big packed levels (default: on for CUDA).
-
-    Where the JAX package would choose the multi-value plan automatically
-    on its packed paths, the port computes the classic plan until
-    multi-value bootstrapping is ported (ROADMAP.md, queue 1 item 4): the
-    decrypted results agree, the ciphertexts differ.  ``multivalue=True``
-    raises NotImplementedError.
+    ``multivalue=None`` takes the multi-value plan when it saves at least
+    ``MV_AUTO_MIN_SAVINGS`` of the rotations (``_compile_auto_mv``).
     """
-    _classic(multivalue)
     params = server_key.params
     contents = _contents4(ct_contents)
     builder, root = compile_match(contents.shape[1], pattern,
                                   num_blocks=params.num_blocks, fold=fold,
                                   branch_budget=branch_budget)
-    circuit = compile_circuit(params, builder, root,
-                              min_bucket=default_min_bucket())
+    circuit = _compile(server_key, builder, root, backend, device,
+                       multivalue, packed=True)
     executor = executor_for(server_key, backend, device)
     result = executor.run_many(circuit, contents, wide_batch=wide_batch)
     logger.info(
-        "%d contents x (%d ops, %d bootstraps in %d levels)",
+        "%d contents x (%d ops, %d bootstraps, %d rotations in %d levels)",
         contents.shape[0], circuit.ct_ops, circuit.pbs_count,
-        len(circuit.levels),
+        circuit.rotation_count, len(circuit.levels),
     )
     return result
 
@@ -265,12 +331,11 @@ def _compile_positions(params: Params, content_len: int, pattern: str,
                                    branch_budget=branch_budget)
 
 
-def _run_roots(server_key, backend, device, builder, roots, ct_content,
-               what: str) -> np.ndarray:
+def _run_roots(server_key, backend, device, multivalue, builder, roots,
+               ct_content, what: str) -> np.ndarray:
     """One content through a multi-root circuit: [R, num_blocks, n+1]."""
-    params = server_key.params
-    circuit = compile_circuit(params, builder, roots,
-                              min_bucket=default_min_bucket())
+    circuit = _compile(server_key, builder, roots, backend, device,
+                       multivalue, packed=False)
     executor = executor_for(server_key, backend, device)
     result = executor.run(circuit, np.ascontiguousarray(ct_content))
     logger.info(
@@ -282,12 +347,12 @@ def _run_roots(server_key, backend, device, builder, roots, ct_content,
     return result
 
 
-def _run_roots_many(server_key, backend, device, builder, roots, contents,
-                    wide_batch, what: str) -> np.ndarray:
-    """Many contents through a multi-root circuit: [C, R, num_blocks, n+1]."""
-    params = server_key.params
-    circuit = compile_circuit(params, builder, roots,
-                              min_bucket=default_min_bucket())
+def _run_roots_many(server_key, backend, device, multivalue, builder, roots,
+                    contents, wide_batch, what: str) -> np.ndarray:
+    """Many contents through a multi-root circuit: [C, R, num_blocks, n+1];
+    the multi-value plan by the packed paths' auto rule."""
+    circuit = _compile(server_key, builder, roots, backend, device,
+                       multivalue, packed=True)
     executor = executor_for(server_key, backend, device)
     result = executor.run_many(circuit, contents, wide_batch=wide_batch)
     logger.info(
@@ -310,13 +375,12 @@ def has_match_patterns(server_key: ServerKey, ct_content: np.ndarray,
     All patterns share a single hash-consed op DAG, so subexpressions common
     across patterns are bootstrapped once.  Returns one radix ciphertext
     per pattern, `[P, num_blocks, n+1]`, in pattern order; decrypt each with
-    ``decrypt``.  ``multivalue`` must be None or False (the classic plan).
+    ``decrypt``.  ``multivalue`` as in ``has_match``.
     """
-    _classic(multivalue)
     builder, roots = _compile_multi(server_key.params, len(ct_content),
                                     patterns, fold, branch_budget)
-    return _run_roots(server_key, backend, device, builder, roots,
-                      ct_content, "patterns")
+    return _run_roots(server_key, backend, device, multivalue, builder,
+                      roots, ct_content, "patterns")
 
 
 def has_match_positions(server_key: ServerKey, ct_content: np.ndarray,
@@ -329,13 +393,12 @@ def has_match_positions(server_key: ServerKey, ct_content: np.ndarray,
     """Per-offset encrypted match bits: result[i] encrypts 1 iff the pattern
     matches starting at content position i (``has_match``'s bit is their
     OR).  Returns `[len, num_blocks, n+1]`; decrypt each row with
-    ``decrypt``.  ``multivalue`` must be None or False (the classic plan).
+    ``decrypt``.  ``multivalue`` as in ``has_match``.
     """
-    _classic(multivalue)
     builder, roots = _compile_positions(server_key.params, len(ct_content),
                                         pattern, fold, branch_budget)
-    return _run_roots(server_key, backend, device, builder, roots,
-                      ct_content, "positions")
+    return _run_roots(server_key, backend, device, multivalue, builder,
+                      roots, ct_content, "positions")
 
 
 def has_match_many_patterns(server_key: ServerKey, ct_contents, patterns,
@@ -347,20 +410,13 @@ def has_match_many_patterns(server_key: ServerKey, ct_contents, patterns,
                             ) -> np.ndarray:
     """Match MANY patterns against MANY equal-length encrypted contents:
     one compiled circuit, levels packed across contents.  Returns
-    `[C, P, num_blocks, n+1]`.
-
-    Where the JAX package would choose the multi-value plan automatically
-    on its packed paths, the port computes the classic plan until
-    multi-value bootstrapping is ported (ROADMAP.md, queue 1 item 4): the
-    decrypted results agree, the ciphertexts differ.  ``multivalue=True``
-    raises NotImplementedError.
+    `[C, P, num_blocks, n+1]`.  ``multivalue`` as in ``has_match_many``.
     """
-    _classic(multivalue)
     contents = _contents4(ct_contents)
     builder, roots = _compile_multi(server_key.params, contents.shape[1],
                                     patterns, fold, branch_budget)
-    return _run_roots_many(server_key, backend, device, builder, roots,
-                           contents, wide_batch, "patterns")
+    return _run_roots_many(server_key, backend, device, multivalue, builder,
+                           roots, contents, wide_batch, "patterns")
 
 
 def has_match_many_positions(server_key: ServerKey, ct_contents,
@@ -373,20 +429,14 @@ def has_match_many_positions(server_key: ServerKey, ct_contents,
                              ) -> np.ndarray:
     """Per-offset match bits for MANY equal-length encrypted contents: one
     compiled multi-root circuit, levels packed across contents.  Returns
-    ``[C, len, num_blocks, n+1]``.
-
-    Where the JAX package would choose the multi-value plan automatically
-    on its packed paths, the port computes the classic plan until
-    multi-value bootstrapping is ported (ROADMAP.md, queue 1 item 4): the
-    decrypted results agree, the ciphertexts differ.  ``multivalue=True``
-    raises NotImplementedError.
+    ``[C, len, num_blocks, n+1]``.  ``multivalue`` as in
+    ``has_match_many``.
     """
-    _classic(multivalue)
     contents = _contents4(ct_contents)
     builder, roots = _compile_positions(server_key.params, contents.shape[1],
                                         pattern, fold, branch_budget)
-    return _run_roots_many(server_key, backend, device, builder, roots,
-                           contents, wide_batch, "positions")
+    return _run_roots_many(server_key, backend, device, multivalue, builder,
+                           roots, contents, wide_batch, "positions")
 
 
 def _or_reduce_bits(server_key: ServerKey, backend: Optional[str],
@@ -478,15 +528,9 @@ def has_match_long(server_key: ServerKey, ct_content: np.ndarray,
     ``has_match`` on the full content.  Anchored patterns reduce to single
     flush windows (`^`: the first span+1 chars; `$`: the last span chars;
     both: trivial FALSE beyond the span); unbounded-span patterns fall back
-    to the direct circuit.
-
-    Where the JAX package would choose the multi-value plan automatically
-    on its packed paths, the port computes the classic plan until
-    multi-value bootstrapping is ported (ROADMAP.md, queue 1 item 4): the
-    decrypted results agree, the ciphertexts differ.  ``multivalue=True``
-    raises NotImplementedError.
+    to the direct circuit.  ``multivalue`` goes to ``has_match`` and
+    ``has_match_many`` as given (auto on the windows' packed run).
     """
-    _classic(multivalue)
     params = server_key.params
     content = np.ascontiguousarray(ct_content)
     L = content.shape[0]
@@ -494,7 +538,8 @@ def has_match_long(server_key: ServerKey, ct_content: np.ndarray,
 
     def direct(ct):
         return has_match(server_key, ct, pattern, backend=backend, fold=fold,
-                         branch_budget=branch_budget, device=device)
+                         branch_budget=branch_budget, device=device,
+                         multivalue=multivalue)
 
     if span is None or L == 0:
         return direct(content)
@@ -516,7 +561,8 @@ def has_match_long(server_key: ServerKey, ct_content: np.ndarray,
     wins = np.stack([content[a:a + W] for a in starts])
     bits = has_match_many(server_key, wins, pattern, backend=backend,
                           fold=fold, branch_budget=branch_budget,
-                          wide_batch=wide_batch, device=device)
+                          wide_batch=wide_batch, multivalue=multivalue,
+                          device=device)
     logger.info("long content: %d chars -> %d windows of %d (span %d)",
                 L, len(starts), W, span)
     return _or_reduce_bits(server_key, backend, device, bits)
@@ -536,15 +582,8 @@ def has_match_many_long(server_key: ServerKey, ct_contents,
     pack into ONE ``run_many`` batch, then each document's window bits
     OR-reduce.  Returns ``[C, num_blocks, n+1]``.  Anchored / unbounded-span
     patterns reduce to one batched ``has_match_many`` over the (possibly
-    trimmed) documents.
-
-    Where the JAX package would choose the multi-value plan automatically
-    on its packed paths, the port computes the classic plan until
-    multi-value bootstrapping is ported (ROADMAP.md, queue 1 item 4): the
-    decrypted results agree, the ciphertexts differ.  ``multivalue=True``
-    raises NotImplementedError.
+    trimmed) documents.  ``multivalue`` as in ``has_match_many``.
     """
-    _classic(multivalue)
     params = server_key.params
     contents = _contents4(ct_contents)
     C, L = contents.shape[0], contents.shape[1]
@@ -553,7 +592,8 @@ def has_match_many_long(server_key: ServerKey, ct_contents,
     def batched(cts):
         return has_match_many(server_key, cts, pattern, backend=backend,
                               fold=fold, branch_budget=branch_budget,
-                              wide_batch=wide_batch, device=device)
+                              wide_batch=wide_batch, multivalue=multivalue,
+                              device=device)
 
     if span is None or L == 0:
         return batched(contents)

@@ -3,7 +3,8 @@
 Mirrors the reference binary (src/main.rs): pre-parses the pattern for an
 early error, then runs keygen -> encrypt -> has_match -> decrypt and prints
 ``res: 0|1`` (``--count``: the number of matching offsets; ``--positions``:
-one bit per start offset; ``--long``: windowed matching).  Logging level via FHE_REGEX_LOG (analog of RUST_LOG,
+one bit per start offset; ``--long``: windowed matching; ``--multivalue``:
+shared blind rotations).  Logging level via FHE_REGEX_LOG (analog of RUST_LOG,
 main.rs:10-11); defaults to info.
 """
 
@@ -45,6 +46,9 @@ def main(argv=None) -> int:
     ap.add_argument("--branch-budget", type=int, default=None,
                     help="cap on circuit branch expansion (clean error "
                          "instead of unbounded compile time)")
+    ap.add_argument("--multivalue", action="store_true",
+                    help="share blind rotations between same-input ops "
+                         "(multi-value bootstrap)")
     ap.add_argument("--count", action="store_true",
                     help="print the NUMBER of matching offsets instead of 0/1")
     ap.add_argument("--positions", action="store_true",
@@ -92,9 +96,19 @@ def main(argv=None) -> int:
               branch_budget=args.branch_budget, device=args.device)
     try:
         if args.count:
+            if args.multivalue:
+                # counting LUT factors fail the mv sigma-margin check, so
+                # count_matches always compiles classic: say so instead of
+                # ignoring the flag (as the JAX package's CLI does)
+                print("error: --multivalue is not supported with --count "
+                      "(counting LUTs fail the multi-value noise-margin "
+                      "check; the count circuit always compiles classic)",
+                      file=sys.stderr)
+                return 2
             ct_res = count_matches(server_key, ct_content, args.pattern, **kw)
             print(f"count: {decrypt_count(client_key, ct_res)}")
             return 0
+        kw["multivalue"] = args.multivalue or None
         if args.positions:
             ct_res = has_match_positions(server_key, ct_content, args.pattern,
                                          **kw)

@@ -9,42 +9,57 @@
 //    rotation over batch blocks of tb instances, one block after another;
 //  * _stage1_kernel: fhe_stage1_digits, one `stage1` launch (plain:
 //    stage1_digits);
-//  * _ext_product_kernel: fhe_external_product_step, one `ext_product`
-//    launch onto a copy of the accumulator (plain: external_product_step).
-//    These two are the per-step backend `cuda`, whose step loop runs in
-//    Python.
+//  * _ext_product_kernel (:114): fhe_external_product_step, one
+//    `ext_product` launch onto a copy of the accumulator (plain:
+//    external_product_step).  These two are the per-step backend `cuda`,
+//    whose step loop runs in Python.
+// The external product inside _fused_blindrot_kernel (:358) and
+// _fused_blindrot_bg_kernel (:713) is the same `ext_product` device code.
 //
 // What bounds it.  Every CMUX step is an external product of the B
 // accumulators' digits with the step's GGSW, a [B, (k+1)l*N] x
 // [(k+1)l*N, (k+1)*N] product whose right side is negacyclic Toeplitz.  At
 // the production set (n=866, N=2048, k=1, l=3) that is
-// 866 * 12 * N^2 ~= 4.4e10 32-bit multiply-adds per bootstrap, run here on
-// the CUDA cores (IMAD, 64 per clock per SM) -- not the tensor cores, which
-// need an int8 limb split of the key (a later step).  The accumulators
-// (B * 16 KB) and one step's GGSW (96 KB) stay in the 50 MB L2.
+// 866 * 12 * N^2 ~= 4.4e10 32-bit multiply-adds per bootstrap.  Split into
+// four int8 limbs of the key it is 4x as many int8 multiply-adds, which
+// the tensor cores run at 1,979 TOP/s dense: 0.052 ms per step at B = 256,
+// the bound.  The accumulators (B * 16 KB) and one step's GGSW (96 KB)
+// stay in the 50 MB L2.
 //
-// What the design does about it.
-//  * The key side is never materialised: a block stages the doubled window
-//    [g, -g] of one GGSW polynomial in shared memory, so the Toeplitz entry
-//    M[t, m] = dbl[(m - t) mod 2N] is a shared-memory read without a branch.
-//  * Each thread owns 4 batch rows x 8 consecutive coefficients (32 uint32
-//    accumulators).  Along t the 8 coefficients read a sliding window of
-//    the key, so 8 steps of t cost 15 key reads and 8 digit reads for 256
-//    multiply-adds: the loop is bound by IMAD, not by shared memory.  The
-//    window is padded (one word every 8) so the 32 lanes hit 32 banks.
-//  * The grid spans (batch tile, component x coefficient tile, digit row),
-//    so even an 8-wide level keeps ~100 blocks busy; rows meet through
-//    32-bit atomic adds, which are exact mod 2^32 in any order.
+// What the design does about it (`ext_product`).
+//  * A limb GEMM on the int8 tensor cores (mma.sync m16n8k32, s8 x s8 ->
+//    s32).  Each key word of the doubled window [g, -g mod 2^32] is split
+//    into four balanced int8 limbs, g and -g each on its own (no limb is
+//    ever negated: -(-128) is not an int8).  Digits lie in [-64, 64), so a
+//    limb product over all (k+1)l*N = 12288 terms is at most
+//    12288 * 64 * 128 ~= 1.0e8 < 2^31: exact in int32.  The epilogue
+//    combines sum_l 2^(8l) * P_l mod 2^32 in uint32.
+//  * No Toeplitz matrix in memory.  A B-fragment register of m16n8k32 is 4
+//    consecutive K entries (t) of one column (m), i.e. 4 consecutive
+//    entries of the REVERSED key window rev[y] = dbl[(M0 + TN - 1 - y) mod
+//    2N], y = t + M0 + TN - 1 - m.  The block keeps each limb's reversed
+//    window in shared memory in 4 byte-shifted copies (copy s holds rev
+//    from byte s), so every fragment register is one aligned 32-bit load.
+//    A lane always reads copy (3 - groupID) & 3; copies are laid out 8
+//    banks apart, so a warp's loads do not conflict.
+//  * The digits (the left operand, contiguous along t) are staged in
+//    shared memory with cp.async in a two-stage ring of 256-deep chunks
+//    (half as many waits on the ring as 128-deep ones), rows padded by 16
+//    bytes so the A-fragment loads hit 32 banks.
+//  * The grid spans (batch tile, component x 64-coefficient tile, digit
+//    row): a batch tile is 16, 32 or 64 rows (MT = 1, 2, 4 m16 tiles per
+//    warp) by the batch, so an 8-wide level pads to 16 rows and still runs
+//    ~400 blocks.  Digit rows meet through 32-bit atomic adds, exact mod
+//    2^32 in any order.
 //  * Per step: one `stage1` launch (rotate by a~_i, subtract, round,
 //    balanced digits into an int8 scratch) and one `ext_product` launch.
 //    The step loop runs on the host side of this library, so a level of
 //    any width spreads every step over the whole card.
 //  * fhe_blind_rotate_bg runs the same launches block by block.  A block's
 //    working set is tb x (16 KB accumulator + 12 KB digits), 25 MB at the
-//    default cap tb = 896: inside the 50 MB L2, where a whole B = 1792
-//    batch (50 MB of accumulators and digits) is not.
+//    default cap tb = 896: inside the 50 MB L2.
 //  * fhe_stage1_digits is bound by bytes (read the accumulator, write the
-//    digits); fhe_external_product_step by the multiply-adds, as above.
+//    digits); fhe_external_product_step by the int8 operations, as above.
 //
 // All torus arithmetic is uint32_t: wraparound is defined there.
 
@@ -54,15 +69,57 @@
 namespace {
 
 constexpr int kThreads1 = 256;      // stage1 / acc_init block
-constexpr int BT = 4;               // batch rows per thread
-constexpr int MT = 8;               // consecutive coefficients per thread
-constexpr int kWarps = 2;           // warps per ext_product block (batch groups)
-constexpr int TBB = BT * kWarps;    // batch rows per block
-constexpr int TMB = MT * 32;        // coefficients per block
-constexpr int TCH = 256;            // digits staged per chunk of t
-constexpr int U = 8;                // t unroll (sliding-window length)
+constexpr int kWarpsE = 4;          // warps per ext_product block
+constexpr int NT = 2;               // n8 tiles per warp
+constexpr int TN = kWarpsE * NT * 8;  // coefficients per block (64)
+constexpr int KC = 256;             // digits (t) staged per chunk
+constexpr int ASTRIDE = KC + 16;    // bytes per staged digit row
+constexpr int NSTAGE = 2;           // cp.async ring depth
+constexpr int NLIMB = 4;            // int8 limbs of a key word
+constexpr int NCOPY = 4;            // byte-shifted copies of a window
 
-__host__ __device__ __forceinline__ int pad_idx(int y) { return y + (y >> 3); }
+// Words of one shifted window copy, and the stride between copies: at
+// least that, and 8 mod 32 so the four copies sit 8 banks apart.
+__host__ __device__ __forceinline__ int win_words(int N) { return (N + TN) / 4; }
+__host__ __device__ __forceinline__ int win_stride(int N) {
+  return ((win_words(N) - 8 + 31) / 32) * 32 + 8;
+}
+
+// The four balanced int8 limbs of w (w = sum_l 2^(8l) limb_l mod 2^32),
+// limb l in byte l.
+__device__ __forceinline__ uint32_t limbs8(uint32_t w) {
+  uint32_t out = 0u;
+#pragma unroll
+  for (int l = 0; l < NLIMB; ++l) {
+    const int v = (int)(int8_t)(w & 0xFFu);
+    out |= (uint32_t)(uint8_t)v << (8 * l);
+    w = (w - (uint32_t)v) >> 8;
+  }
+  return out;
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
 
 // acc[b, c<k, :] = 0;  acc[b, k, m] = (X^{r0} * lut)[m],
 // r0 = (2N - b~) mod 2N,  lut = luts[lut_idx[b]].
@@ -118,90 +175,171 @@ __global__ void stage1(const int32_t* __restrict__ cts_ms,
   }
 }
 
-// acc[b, c, m] += sum_r sum_t digits[b, r, t] * dbl_{r,c}[(m - t) mod 2N]
-// over the block's (batch tile, c, coefficient tile) and its one row r.
-__global__ void __launch_bounds__(kWarps * 32)
+// acc[b, c, m] += sum_t digits[b, r, t] * dbl_{r,c}[(m - t) mod 2N] over
+// the block's batch tile (16 * MT rows from b0), component c, coefficient
+// tile [M0, M0 + TN) and its one digit row r.
+template <int MT>
+__global__ void __launch_bounds__(kWarpsE * 32)
 ext_product(const int8_t* __restrict__ digits,
             const uint32_t* __restrict__ ggsw,   // this step: [rows, k1, N]
             uint32_t* __restrict__ acc, int B, int k1, int N, int rows) {
+  constexpr int BM = 16 * MT;
   extern __shared__ __align__(16) uint32_t smem[];
-  const int win_len = N + TMB;
-  uint32_t* win = smem;                                  // pad_idx(win_len)
-  int32_t* dig = reinterpret_cast<int32_t*>(smem + pad_idx(win_len) + 8);
+  const int stride = win_stride(N);
+  uint32_t* win = smem;                       // [limb][copy][stride] words
+  int8_t* a_s = reinterpret_cast<int8_t*>(smem + NLIMB * NCOPY * stride);
 
-  const int mtiles = N / TMB;
+  const int ntiles = N / TN;
   const int r = blockIdx.z;
-  const int c = blockIdx.y / mtiles;
-  const int M0 = (blockIdx.y % mtiles) * TMB;
-  const int b0 = blockIdx.x * TBB;
-  const int lane = threadIdx.x & 31;
-  const int wb = threadIdx.x >> 5;
-
-  // win[y] = dbl[(M0 - N + y) mod 2N], y in [0, N + TMB)
-  const uint32_t* g = ggsw + ((long long)r * k1 + c) * N;
-  for (int y = threadIdx.x; y < win_len; y += blockDim.x) {
-    int z = (M0 - N + y) & (2 * N - 1);
-    win[pad_idx(y)] = z < N ? g[z] : 0u - g[z - N];
-  }
-
-  uint32_t accv[BT][MT];
-#pragma unroll
-  for (int bb = 0; bb < BT; ++bb)
-#pragma unroll
-    for (int j = 0; j < MT; ++j) accv[bb][j] = 0u;
-
-  // coefficient m = M0 + lane*MT + j reads win at y = lane*MT + j - t + N
-  const int ybase = lane * MT + N - (U - 1);
-  const int8_t* drow = digits + (long long)r * N;
+  const int c = blockIdx.y / ntiles;
+  const int M0 = (blockIdx.y % ntiles) * TN;
+  const int b0 = blockIdx.x * BM;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
   const long long dstride = (long long)rows * N;
 
-  for (int t0 = 0; t0 < N; t0 += TCH) {
-    __syncthreads();   // window written / previous chunk consumed
-    for (int e = threadIdx.x; e < TBB * TCH; e += blockDim.x) {
-      int bb = e / TCH, tt = e % TCH;
-      int b = b0 + bb;
-      dig[tt * TBB + bb] = b < B ? (int32_t)drow[b * dstride + t0 + tt] : 0;
+  // rows past the batch stay zero in both stages; the rest arrive by
+  // cp.async, chunk kc into stage kc % NSTAGE
+  for (int e = tid; e < NSTAGE * BM * (KC / 16); e += blockDim.x) {
+    const int row = (e / (KC / 16)) % BM;
+    if (b0 + row >= B)
+      *reinterpret_cast<int4*>(a_s + (e / (KC / 16)) * ASTRIDE +
+                               (e % (KC / 16)) * 16) = make_int4(0, 0, 0, 0);
+  }
+  auto stage_chunk = [&](int kc) {
+    int8_t* dst = a_s + (kc % NSTAGE) * BM * ASTRIDE;
+    for (int e = tid; e < BM * (KC / 16); e += blockDim.x) {
+      const int row = e / (KC / 16), q = e % (KC / 16);
+      const int b = b0 + row;
+      if (b < B)
+        cp_async16(dst + row * ASTRIDE + q * 16,
+                   digits + b * dstride + (long long)r * N + kc * KC + q * 16);
     }
-    __syncthreads();
-    for (int tu = 0; tu < TCH; tu += U) {
-      const int t = t0 + tu;
-      uint32_t kw[MT + U - 1];
+    cp_async_commit();
+  };
+  stage_chunk(0);
+
+  // the reversed windows: rev[y] = dbl[(M0 + TN - 1 - y) mod 2N], copy s
+  // word i = limb bytes of rev[4i + s .. 4i + s + 3]
+  const uint32_t* gp = ggsw + ((long long)r * k1 + c) * N;
+  for (int i = tid; i < win_words(N); i += blockDim.x) {
+    uint32_t lim[7];
 #pragma unroll
-      for (int q = 0; q < MT + U - 1; ++q) kw[q] = win[pad_idx(ybase - t + q)];
+    for (int q = 0; q < 7; ++q) {
+      const int z = (M0 + TN - 1 - (4 * i + q)) & (2 * N - 1);
+      lim[q] = limbs8(z < N ? gp[z] : 0u - gp[z - N]);
+    }
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int4 dv =
-            *reinterpret_cast<const int4*>(&dig[(tu + u) * TBB + wb * BT]);
-        const uint32_t d[BT] = {(uint32_t)dv.x, (uint32_t)dv.y, (uint32_t)dv.z,
-                                (uint32_t)dv.w};
+    for (int l = 0; l < NLIMB; ++l)
 #pragma unroll
-        for (int j = 0; j < MT; ++j) {
-          const uint32_t kv = kw[j - u + U - 1];
+      for (int s = 0; s < NCOPY; ++s) {
+        uint32_t v = 0u;
 #pragma unroll
-          for (int bb = 0; bb < BT; ++bb) accv[bb][j] += d[bb] * kv;
+        for (int j = 0; j < 4; ++j)
+          v |= ((lim[s + j] >> (8 * l)) & 0xFFu) << (8 * j);
+        win[(l * NCOPY + s) * stride + i] = v;
+      }
+  }
+
+  int p[MT][NT][NLIMB][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int l = 0; l < NLIMB; ++l)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) p[mt][nt][l][q] = 0;
+
+  // this lane's B fragments: column m = M0 + warp*NT*8 + nt*8 + g, rows
+  // t = t0 + tig*4 + {0..3} (b0) and +16 (b1): y = t + TN - 1 - (m - M0)
+  const int s = (3 - g) & 3;
+  const uint32_t* wl = win + s * stride;
+  const int nchunks = N / KC;
+  for (int kc = 0; kc < nchunks; ++kc) {
+    if (kc + 1 < nchunks) stage_chunk(kc + 1);
+    else cp_async_commit();                 // keep one group per chunk
+    cp_async_wait1();
+    __syncthreads();   // chunk kc (and, at kc = 0, the windows) visible
+    const int8_t* at = a_s + (kc % NSTAGE) * BM * ASTRIDE;
+#pragma unroll
+    for (int ks = 0; ks < KC / 32; ++ks) {
+      uint32_t af[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int8_t* ap = at + (mt * 16 + g) * ASTRIDE + ks * 32 + tig * 4;
+        af[mt][0] = *reinterpret_cast<const uint32_t*>(ap);
+        af[mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * ASTRIDE);
+        af[mt][2] = *reinterpret_cast<const uint32_t*>(ap + 16);
+        af[mt][3] = *reinterpret_cast<const uint32_t*>(ap + 8 * ASTRIDE + 16);
+      }
+      const int t0 = kc * KC + ks * 32;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int yb = t0 + tig * 4 + TN - 1 - (warp * NT * 8 + nt * 8 + g);
+        const uint32_t* bp = wl + ((yb - s) >> 2);
+#pragma unroll
+        for (int l = 0; l < NLIMB; ++l) {
+          const uint32_t bf0 = bp[l * NCOPY * stride];
+          const uint32_t bf1 = bp[l * NCOPY * stride + 4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) mma_s8(p[mt][nt][l], af[mt], bf0, bf1);
         }
       }
     }
+    __syncthreads();   // stage kc % NSTAGE consumed before it is refilled
   }
 
+  // d fragment q: row g (+8 for q >= 2), column 2*tig + (q & 1)
 #pragma unroll
-  for (int bb = 0; bb < BT; ++bb) {
-    int b = b0 + wb * BT + bb;
-    if (b >= B) continue;
-    uint32_t* out = acc + ((long long)b * k1 + c) * N + M0 + lane * MT;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < MT; ++j) atomicAdd(out + j, accv[bb][j]);
+    for (int q = 0; q < 4; ++q) {
+      const int b = b0 + mt * 16 + g + (q >= 2 ? 8 : 0);
+      if (b >= B) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint32_t v = 0u;
+#pragma unroll
+        for (int l = 0; l < NLIMB; ++l) v += (uint32_t)p[mt][nt][l][q] << (8 * l);
+        const int m = M0 + warp * NT * 8 + nt * 8 + 2 * tig + (q & 1);
+        atomicAdd(acc + ((long long)b * k1 + c) * N + m, v);
+      }
+    }
+}
+
+// Batch rows per ext_product block, in m16 tiles: 1 up to 16 rows, 2 up
+// to 32, else 4.
+int ext_mt(int B) { return B <= 16 ? 1 : (B <= 32 ? 2 : 4); }
+
+size_t ext_product_smem(int N, int mt) {
+  return (size_t)NLIMB * NCOPY * win_stride(N) * sizeof(uint32_t) +
+         (size_t)NSTAGE * 16 * mt * ASTRIDE;
+}
+
+// One ext_product launch on `stream` (after its shared-memory opt-in,
+// raised once per instance to the largest size asked for); returns a
+// cudaError_t.
+int launch_ext_product(const int8_t* digits, const uint32_t* ggsw,
+                       uint32_t* acc, int B, int k1, int N, int rows,
+                       cudaStream_t stream) {
+  static size_t opted[3] = {0, 0, 0};
+  const int mt = ext_mt(B);
+  const int which = mt == 1 ? 0 : (mt == 2 ? 1 : 2);
+  const dim3 grid((B + 16 * mt - 1) / (16 * mt), k1 * (N / TN), rows);
+  const size_t smem = ext_product_smem(N, mt);
+  void (*kern)(const int8_t*, const uint32_t*, uint32_t*, int, int, int, int) =
+      mt == 1 ? ext_product<1> : (mt == 2 ? ext_product<2> : ext_product<4>);
+  if (smem > opted[which]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted[which] = smem;
   }
-}
-
-// Shared memory of one ext_product block for polynomial size N.
-size_t ext_product_smem(int N) {
-  return (size_t)(pad_idx(N + TMB) + 8) * sizeof(uint32_t) +
-         (size_t)TCH * TBB * sizeof(int32_t);
-}
-
-dim3 ext_product_grid(int B, int k1, int N, int rows) {
-  return dim3((B + TBB - 1) / TBB, k1 * (N / TMB), rows);
+  kern<<<grid, kWarpsE * 32, smem, stream>>>(digits, ggsw, acc, B, k1, N,
+                                             rows);
+  return (int)cudaGetLastError();
 }
 
 unsigned elementwise_grid(int B, int k1, int N) {
@@ -216,8 +354,6 @@ int rotate32(const int32_t* cts_ms, const int32_t* luts,
              int base_log, cudaStream_t stream) {
   const int rows = k1 * level;
   const unsigned grid1 = elementwise_grid(B, k1, N);
-  const dim3 grid2 = ext_product_grid(B, k1, N, rows);
-  const size_t smem = ext_product_smem(N);
 
   acc_init<<<grid1, kThreads1, 0, stream>>>(cts_ms, luts, lut_idx, acc, B, n,
                                             k1, N);
@@ -227,10 +363,11 @@ int rotate32(const int32_t* cts_ms, const int32_t* luts,
   for (int i = 0; i < n; ++i) {
     stage1<<<grid1, kThreads1, 0, stream>>>(cts_ms, acc, digits, B, n, k1, N,
                                             level, base_log, i);
-    ext_product<<<grid2, kWarps * 32, smem, stream>>>(
-        digits, bsk + i * step_stride, acc, B, k1, N, rows);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    int e = launch_ext_product(digits, bsk + i * step_stride, acc, B, k1, N,
+                               rows, stream);
+    if (e != 0) return e;
   }
   return 0;
 }
@@ -242,7 +379,7 @@ extern "C" {
 // The whole blind rotation, enqueued on `stream`; returns a cudaError_t.
 //   cts_ms  [B, n+1] int32 in [0, 2N)      luts [L, N]    lut_idx [B]
 //   bsk     [n, k1*level, k1, N]           acc  [B, k1, N] (output)
-//   digits  [B, k1*level, N] int8 scratch
+//   digits  [B, k1*level, N] int8 scratch (16-byte aligned)
 // Needs N a power of two, a multiple of 256, and 32 - base_log*level >= 1.
 int fhe_blind_rotate(const int32_t* cts_ms, const int32_t* luts,
                      const int32_t* lut_idx, const int32_t* bsk, int32_t* acc,
@@ -291,22 +428,19 @@ int fhe_stage1_digits(const int32_t* a, const int32_t* acc, int8_t* digits,
 // One CMUX step's external product (the `_ext_product_kernel`
 // counterpart): out = acc + sum_r digits[:, r] (*) ggsw_i[r, c] mod X^N+1,
 // mod 2^32.  out starts as a copy of acc, so acc is left as it is.
-//   digits [B, k1*level, N] int8   ggsw_i [k1*level, k1, N]
+//   digits [B, k1*level, N] int8 (16-byte aligned)   ggsw_i [k1*level, k1, N]
 //   acc, out [B, k1, N]
 int fhe_external_product_step(const int8_t* digits, const int32_t* ggsw_i,
                               const int32_t* acc, int32_t* out, int B, int k1,
                               int N, int level, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const int rows = k1 * level;
   cudaError_t err = cudaMemcpyAsync(
       out, acc, (size_t)B * k1 * N * sizeof(int32_t),
       cudaMemcpyDeviceToDevice, stream);
   if (err != cudaSuccess) return (int)err;
-  ext_product<<<ext_product_grid(B, k1, N, rows), kWarps * 32,
-                ext_product_smem(N), stream>>>(
-      digits, reinterpret_cast<const uint32_t*>(ggsw_i),
-      reinterpret_cast<uint32_t*>(out), B, k1, N, rows);
-  return (int)cudaGetLastError();
+  return launch_ext_product(digits, reinterpret_cast<const uint32_t*>(ggsw_i),
+                            reinterpret_cast<uint32_t*>(out), B, k1, N,
+                            k1 * level, stream);
 }
 
 }  // extern "C"

@@ -220,16 +220,6 @@ def key_switch(params: Params, ksk_f64: torch.Tensor,
     return wrap_i32(acc)
 
 
-def pbs_batch(params: Params, bsk: torch.Tensor, ksk_f64: torch.Tensor,
-              luts: torch.Tensor, lut_idx: torch.Tensor,
-              cts: torch.Tensor) -> torch.Tensor:
-    """Full batched PBS: [B, n+1] -> [B, n+1] (plain path)."""
-    ms = mod_switch(params, cts)
-    acc = blind_rotate(params, bsk, luts, lut_idx, ms)
-    big = sample_extract(params, acc)
-    return key_switch(params, ksk_f64, big)
-
-
 # ---------------- backend selection ----------------
 
 
@@ -311,40 +301,41 @@ def prepare_server_key(params: Params, server_key,
         tuple(drop))
 
 
-def make_pbs_core(dev_key: DeviceServerKey):
-    """Callable (luts, lut_idx, cts) -> cts_out for the prepared key."""
-    params = dev_key.params
-    if dev_key.backend == "torch":
-        def core(luts, lut_idx, cts):
-            return pbs_batch(params, dev_key.bsk, dev_key.ksk, luts, lut_idx,
-                             cts)
-        return core
-    if dev_key.backend in ("cuda-fused", "cuda-bg", "cuda"):
-        from fhe_regex_tpu_torch.ops import pbs_cuda
-        rotate = {"cuda-fused": pbs_cuda.blind_rotate_fused,
-                  "cuda-bg": pbs_cuda.blind_rotate_fused_bg,
-                  "cuda": pbs_cuda.blind_rotate_steps}[dev_key.backend]
+def rotation_fn(backend: str):
+    """The blind rotation of a backend, (params, bsk, luts, lut_idx,
+    cts_ms) -> accumulators: the plain one, or a kernel wrapper of
+    ``ops/pbs_cuda.py``."""
+    from fhe_regex_tpu_torch.ops import pbs_cuda
+    rotations = {
+        "torch": blind_rotate,
+        "cuda-fused": pbs_cuda.blind_rotate_fused,
+        "cuda-bg": pbs_cuda.blind_rotate_fused_bg,
+        "cuda": pbs_cuda.blind_rotate_steps,
+        "torch64": pbs64.blind_rotate64,
+        "cuda64": pbs_cuda.blind_rotate_fused64,
+        "cuda64-bg": pbs_cuda.blind_rotate_fused64_bg,
+    }
+    if backend not in rotations:
+        raise ValueError(backend)
+    return rotations[backend]
 
+
+def make_pbs_core(dev_key: DeviceServerKey):
+    """Callable (luts, lut_idx, cts) -> cts_out for the prepared key: mod
+    switch, the backend's blind rotation, sample extract, keyswitch."""
+    params = dev_key.params
+    rotate = rotation_fn(dev_key.backend)
+    if params.torus_bits == 32:
         def core(luts, lut_idx, cts):
-            ms = mod_switch(params, cts)
-            acc = rotate(params, dev_key.bsk, luts, lut_idx, ms)
+            acc = rotate(params, dev_key.bsk, luts, lut_idx,
+                         mod_switch(params, cts))
             return key_switch(params, dev_key.ksk,
                               sample_extract(params, acc))
         return core
-    if dev_key.backend == "torch64":
-        def core(luts, lut_idx, cts):
-            return pbs64.pbs_batch64(params, dev_key.bsk, dev_key.ksk, luts,
-                                     lut_idx, cts)
-        return core
-    if dev_key.backend in ("cuda64", "cuda64-bg"):
-        from fhe_regex_tpu_torch.ops import pbs_cuda
-        rotate = (pbs_cuda.blind_rotate_fused64 if dev_key.backend == "cuda64"
-                  else pbs_cuda.blind_rotate_fused64_bg)
 
-        def core(luts, lut_idx, cts):
-            ms = pbs64.mod_switch64(params, cts)
-            acc = rotate(params, dev_key.bsk, luts, lut_idx, ms)
-            return pbs64.key_switch64(params, dev_key.ksk,
-                                      pbs64.sample_extract64(params, acc))
-        return core
-    raise ValueError(dev_key.backend)
+    def core64(luts, lut_idx, cts):
+        acc = rotate(params, dev_key.bsk, luts, lut_idx,
+                     pbs64.mod_switch64(params, cts))
+        return pbs64.key_switch64(params, dev_key.ksk,
+                                  pbs64.sample_extract64(params, acc))
+    return core64

@@ -226,15 +226,6 @@ def key_switch64(params: Params, ksk_f64: torch.Tensor,
     return out
 
 
-def pbs_batch64(params: Params, bsk: torch.Tensor, ksk_f64: torch.Tensor,
-                luts: torch.Tensor, lut_idx: torch.Tensor,
-                cts: torch.Tensor) -> torch.Tensor:
-    """Full batched 64-bit PBS: [B, n+1] -> [B, n+1] (plain path)."""
-    ms = mod_switch64(params, cts)
-    acc = blind_rotate64(params, bsk, luts, lut_idx, ms)
-    return key_switch64(params, ksk_f64, sample_extract64(params, acc))
-
-
 # ---------------- bootstrap-key limb drop (host) ----------------
 
 

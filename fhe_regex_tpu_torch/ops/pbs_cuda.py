@@ -329,6 +329,9 @@ def external_product_step(params: Params, digits: torch.Tensor,
     _check("acc", acc, (B, k1, N), torch.int32, dev)
     _check("digits", digits, (B, rows, N), torch.int8, dev)
     _check("ggsw_i", ggsw_i, (rows, k1, N), torch.int32, dev)
+    if digits.data_ptr() % 16:
+        raise ValueError("digits must start on a 16-byte boundary (the "
+                         "kernel stages them with 16-byte cp.async)")
     out = torch.empty_like(acc)
     _call("fhe_external_product_step", dev, digits.data_ptr(),
           ggsw_i.data_ptr(), acc.data_ptr(), out.data_ptr(), B, k1, N,

@@ -1,9 +1,9 @@
 """Level-scheduled batched executor (PyTorch).
 
-The twin of ``fhe_regex_tpu/regex/executor.py`` for the classic plan: the
-hash-consed micro-op DAG (regex/circuit.py) is level-scheduled ahead of
-time, and every level is ONE batched PBS call over all bootstraps whose
-inputs are ready.  Each level executes:
+The twin of ``fhe_regex_tpu/regex/executor.py``: the hash-consed micro-op
+DAG (regex/circuit.py) is level-scheduled ahead of time, and every level
+is ONE batched PBS call over all bootstraps whose inputs are ready.  Each
+level executes:
   1. affine gather:  x_i = sum_k coef_ik * slab[slot_ik] + const_i * delta
   2. batched PBS with per-instance LUT selection
   3. scatter of outputs into the ciphertext slab
@@ -13,31 +13,47 @@ inputs are ready.  Each level executes:
 Level batch widths are padded to power-of-two buckets; padded instances
 write to a trash slot.
 
+With ``multivalue=True`` a level's ops that share an affine input share
+ONE blind rotation of the common test polynomial, and each op derives its
+LUT at extract time (``ops/mv.py``): step 2 becomes a rotation batch over
+the deduped inputs plus a derived extract and keyswitch per op.
+
 The slab holds torus values as int32 bits at 32 bits and int64 bits at 64
 bits; ciphertexts cross the API as uint32 / uint64 numpy arrays.
 
 ``Executor.run_many`` is the serving path: one compiled circuit against C
-contents, every level's active bootstraps packed across the contents and
-cut into launches of the three widths of ``_chunk_sizes``.
+contents, every level's active bootstraps (or rotations) packed across the
+contents and cut into launches of the three widths of ``_chunk_sizes``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import time
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import numpy as np
 import torch
 
 from fhe_regex_tpu_torch.crypto.golden import make_lut_poly
-from fhe_regex_tpu_torch.ops.luts import LutKey, lut_fn
+from fhe_regex_tpu_torch.ops.luts import (LutKey, lut_fn, mv_support_positions,
+                                          mv_weights)
+from fhe_regex_tpu_torch.ops.mv import (make_mv_finish_core,
+                                        make_mv_rotate_core, mv_lut_table)
 from fhe_regex_tpu_torch.ops.pbs import I64, make_pbs_core, wrap_i32
 from fhe_regex_tpu_torch.params import Params
 from fhe_regex_tpu_torch.regex.circuit import BitVal, CircuitBuilder, Node, PbsOp
 
 U32 = np.uint32
+
+
+class MvMarginError(ValueError):
+    """A multi-value LUT factor fails the >=5 sigma noise-margin check.
+
+    Distinct from other compile ValueErrors so the packed-path auto-mv
+    fallback (``_compile_auto_mv``) catches exactly this rejection."""
 
 
 @dataclasses.dataclass
@@ -47,6 +63,19 @@ class LevelPlan:
     consts: np.ndarray     # [W] int32 (plaintext units)
     lut_idx: np.ndarray    # [W] int32
     out_idx: np.ndarray    # [W] int32
+    # multi-value plan (compile_circuit(multivalue=True); None on the
+    # classic path): rot_* are the [R, ...] deduped rotation inputs,
+    # mv_leader maps each op to its rotation row, mv_weights are the ops'
+    # LUT factor weights over the support positions mv_positions.
+    rot_slots: "np.ndarray | None" = None
+    rot_coefs: "np.ndarray | None" = None
+    rot_consts: "np.ndarray | None" = None
+    mv_weights: "np.ndarray | None" = None   # columns = mv_positions only
+    mv_leader: "np.ndarray | None" = None
+    mv_rot_count: int = 0          # active rotations (R before padding)
+    # the static support positions this level's LUT factors use (a dead
+    # column would cost a negacyclic roll of every accumulator)
+    mv_positions: "tuple | None" = None
 
 
 @dataclasses.dataclass
@@ -61,10 +90,20 @@ class CompiledCircuit:
     # multi-root circuits: roots[i] is pattern i's result bit; None for
     # single-root circuits.
     roots: "List[Node] | None" = None
+    # multi-value bootstrap circuit (shared rotations; ops/mv.py)
+    multivalue: bool = False
 
     @property
     def pbs_count(self) -> int:
         return sum(int((lv.lut_idx >= 0).sum()) for lv in self.levels)
+
+    @property
+    def rotation_count(self) -> int:
+        """Blind rotations actually executed (== pbs_count on the classic
+        path; smaller under multivalue when ops share inputs)."""
+        if not self.multivalue:
+            return self.pbs_count
+        return sum(lv.mv_rot_count for lv in self.levels)
 
     @property
     def all_roots(self) -> List[Node]:
@@ -134,13 +173,82 @@ def _bucket(w: int, min_bucket: int = 8) -> int:
     return b
 
 
+def active_bsk_drop(params: Params, backend: "str | None" = None,
+                    device: "torch.device | str | None" = None
+                    ) -> "tuple | None":
+    """The key-limb drop the selected backend applies to these params.
+
+    Only ``cuda64-bg`` (the 64-bit default on CUDA) rounds the bootstrap
+    key; every other backend keeps it whole.  ``backend=None`` assumes the
+    default resolution on ``device`` (None: CUDA, the port's default
+    device).  Noise gates and p_fail reports use it, so they reflect the
+    real operating point."""
+    if params.torus_bits != 64:
+        return None
+    from fhe_regex_tpu_torch.ops.pbs import resolve_backend
+    from fhe_regex_tpu_torch.ops.pbs64 import default_drop64
+    if resolve_backend(backend, device or "cuda", params) != "cuda64-bg":
+        return None
+    drop = default_drop64(params)
+    return drop if drop != (0, 0) else None
+
+
+def _dev_key_drop(dev_key) -> "tuple | None":
+    """The key-limb drop a prepared key carries (None if (0, 0))."""
+    drop = tuple(dev_key.drop64)
+    return drop if drop != (0, 0) else None
+
+
+def worst_mv_norm2(circuit) -> "int | None":
+    """Largest ||u||^2 over the circuit's multivalue LUT factors (the
+    blind-rotation variance amplifier), or None for classic circuits."""
+    if not circuit.multivalue:
+        return None
+    worst = 0
+    for lv in circuit.levels:
+        if lv.mv_weights is not None and lv.mv_weights.size:
+            worst = max(worst, int(
+                (lv.mv_weights.astype(np.int64) ** 2).sum(axis=1).max()))
+    return worst or None
+
+
+_DROP_DEFAULT = object()   # sentinel: "assume the default backend's drop"
+
+
+def circuit_pfail(params: Params, circuit, bsk_drop=_DROP_DEFAULT) -> dict:
+    """The failure-probability contract at the engine's operating point:
+    the backend's key-limb drop and the circuit's worst mv factor norm.
+    ``bsk_drop`` (a tuple or None) reports for a specific prepared key.
+    Non-finite log2 values (zero-noise test sets) are reported as None."""
+    drop = active_bsk_drop(params) if bsk_drop is _DROP_DEFAULT else bsk_drop
+    mvn = worst_mv_norm2(circuit)
+    rep = params.noise_budget_report(mv_norm2=mvn, bsk_drop=drop)
+    lp = rep["log2_p_fail_per_pbs"]
+    return {
+        "pbs_count": circuit.pbs_count,
+        "mv_norm2": mvn,
+        "bsk_drop": list(drop) if drop else None,
+        "log2_p_fail_per_pbs": lp if math.isfinite(lp) else None,
+        "p_fail_circuit": params.p_fail_circuit(
+            circuit.pbs_count, mv_norm2=mvn, bsk_drop=drop),
+    }
+
+
 def compile_circuit(params: Params, builder: CircuitBuilder,
                     root: "Node | List[Node]",
                     min_bucket: int = 8,
-                    max_batch: int = MAX_LEVEL_BATCH) -> CompiledCircuit:
+                    max_batch: int = MAX_LEVEL_BATCH,
+                    multivalue: bool = False,
+                    bsk_drop=_DROP_DEFAULT) -> CompiledCircuit:
     """Level-schedule a builder's op DAG.  `root` may be one Node or a list
     of them (multi-pattern circuits); `run` then returns one result row per
-    root."""
+    root.
+
+    multivalue=True compiles the shared-rotation plan (ops/mv.py): ops in a
+    level that share an affine input share ONE blind rotation.  Same
+    decrypted results; the noise margin of every LUT factor is checked at
+    the backend's key drop ``bsk_drop`` (default: ``active_bsk_drop``), and
+    a factor under 5 sigma raises MvMarginError."""
     roots: "List[Node] | None" = None
     if isinstance(root, (list, tuple)):
         roots = list(root)
@@ -186,8 +294,10 @@ def compile_circuit(params: Params, builder: CircuitBuilder,
                 consts[i] = op.const
                 lut_idx[i] = lut_ids[op.lut]
                 out_idx[i] = op.out_slot
-            levels.append(LevelPlan(in_slots, in_coefs, consts, lut_idx,
-                                    out_idx))
+            plan = LevelPlan(in_slots, in_coefs, consts, lut_idx, out_idx)
+            if multivalue:
+                _attach_mv_plan(params, plan, chunk, w, min_bucket, bsk_drop)
+            levels.append(plan)
 
     return CompiledCircuit(
         params=params,
@@ -198,7 +308,60 @@ def compile_circuit(params: Params, builder: CircuitBuilder,
         ct_ops=builder.ct_ops,
         cache_hits=builder.cache_hits,
         roots=roots,
+        multivalue=multivalue,
     )
+
+
+def _attach_mv_plan(params: Params, plan: LevelPlan, chunk, w: int,
+                    min_bucket: int, bsk_drop) -> None:
+    """Dedup a level chunk's affine inputs into a rotation batch and record
+    each op's (leader, LUT factor weights), as the JAX package does."""
+    S = len(mv_support_positions(params))
+    drop = active_bsk_drop(params) if bsk_drop is _DROP_DEFAULT else bsk_drop
+    groups: Dict[Tuple, int] = {}
+    leaders: List[Tuple] = []
+    leader = np.zeros(w, np.int32)
+    weights = np.zeros((w, S), np.int32)
+    wcache: Dict[Tuple, np.ndarray] = {}
+    for i, op in enumerate(chunk):
+        key = (op.in_slots, op.in_coefs, op.const)
+        r = groups.get(key)
+        if r is None:
+            r = groups[key] = len(leaders)
+            leaders.append(key)
+        leader[i] = r
+        wv = wcache.get(op.lut)
+        if wv is None:
+            wv = wcache[op.lut] = mv_weights(params, op.lut)
+            u2 = int((wv.astype(np.int64) ** 2).sum())
+            rep = params.noise_budget_report(mv_norm2=u2, bsk_drop=drop)
+            if rep["sigma_margin"] < 5.0:
+                raise MvMarginError(
+                    f"multivalue factor of LUT {op.lut!r} has ||u||^2={u2}, "
+                    f"leaving only {rep['sigma_margin']:.2f} sigma (< 5) — "
+                    f"compile this circuit with multivalue=False")
+        weights[i] = wv
+    R = len(leaders)
+    rb = min(_bucket(R, min_bucket), w)      # rotation batch, padded
+    rot_slots = np.zeros((rb, 3), np.int32)
+    rot_coefs = np.zeros((rb, 3), np.int32)
+    rot_consts = np.zeros(rb, np.int32)
+    for r, (slots, coefs, const) in enumerate(leaders):
+        rot_slots[r] = slots
+        rot_coefs[r] = coefs
+        rot_consts[r] = const
+    # keep only the support columns some weight uses
+    pos = mv_support_positions(params)
+    active_cols = np.flatnonzero(weights.any(axis=0))
+    if active_cols.size == 0:
+        active_cols = np.asarray([0])
+    plan.rot_slots = rot_slots
+    plan.rot_coefs = rot_coefs
+    plan.rot_consts = rot_consts
+    plan.mv_weights = np.ascontiguousarray(weights[:, active_cols])
+    plan.mv_leader = leader
+    plan.mv_rot_count = R
+    plan.mv_positions = tuple(int(pos[c]) for c in active_cols)
 
 
 class Executor:
@@ -207,8 +370,13 @@ class Executor:
     def __init__(self, params: Params, dev_key):
         self.params = params
         self.device = dev_key.device
+        self._dev_key = dev_key
         self._core = make_pbs_core(dev_key)
+        self._mv_rotate = make_mv_rotate_core(dev_key)
+        self._mv_finish = make_mv_finish_core(dev_key)
+        self._vlut = mv_lut_table(params, self.device)
         self.last_run_stats: List[dict] = []
+        self.last_run_pfail: "dict | None" = None
         wide = params.torus_bits == 64
         self._dtype = I64 if wide else torch.int32
         self._np_u = np.uint64 if wide else U32       # the bits at the API
@@ -233,18 +401,44 @@ class Executor:
         # is unspecified on CUDA, and the trash slot is never read
         slab[out_idx] = outs
 
+    def _run_level_mv(self, slab, rot_slots, rot_coefs, rot_consts,
+                      weights, leader, out_idx, positions) -> None:
+        """One multi-value level, in place: the deduped rotations of the
+        common test polynomial, then every op's derived extract."""
+        x = self._affine_combine(slab[rot_slots], rot_coefs, rot_consts)
+        accs = self._mv_rotate(self._vlut, x)
+        slab[out_idx] = self._mv_finish(accs, weights, leader, positions)
+
+    @staticmethod
+    def _check_plan(circuit: CompiledCircuit) -> None:
+        if circuit.multivalue and any(lv.mv_leader is None
+                                      for lv in circuit.levels):
+            raise ValueError("a multivalue circuit needs its multi-value "
+                             "plan: compile it with "
+                             "compile_circuit(multivalue=True)")
+
     def _device_plan(self, circuit: CompiledCircuit):
         """LUT table and level plan arrays on this executor's device, cached
-        on the circuit (the plans are immutable once compiled)."""
+        on the circuit (the plans are immutable once compiled).  A
+        multi-value level is (rot_slots, rot_coefs, rot_consts, weights,
+        leader, out_idx, positions), positions staying a host tuple."""
         cache = circuit.__dict__.setdefault("_torch_plans", {})
         key = str(self.device)
         if key not in cache:
             dev = self._upload
             luts = dev(circuit.luts.view(self._np_s), self._dtype)
             # slot indices are int64, the index type of torch's gathers
-            levels = [(dev(lv.in_slots, I64), dev(lv.in_coefs),
-                       dev(lv.consts), dev(lv.lut_idx), dev(lv.out_idx, I64))
-                      for lv in circuit.levels]
+            if circuit.multivalue:
+                levels = [(dev(lv.rot_slots, I64), dev(lv.rot_coefs),
+                           dev(lv.rot_consts), dev(lv.mv_weights),
+                           dev(lv.mv_leader, I64), dev(lv.out_idx, I64),
+                           lv.mv_positions)
+                          for lv in circuit.levels]
+            else:
+                levels = [(dev(lv.in_slots, I64), dev(lv.in_coefs),
+                           dev(lv.consts), dev(lv.lut_idx),
+                           dev(lv.out_idx, I64))
+                          for lv in circuit.levels]
             cache[key] = (luts, levels)
         return cache[key]
 
@@ -298,21 +492,98 @@ class Executor:
         cache[key] = chunks
         return chunks
 
+    @staticmethod
+    def _mv_pad_rows(n: int) -> int:
+        """Packed multi-value op batches pad to {64, 256, multiples of
+        1024}, as in the JAX package."""
+        for b in (64, 256, 1024):
+            if n <= b:
+                return b
+        return -(-n // 1024) * 1024
+
+    # accumulator rows of one packed multi-value step: 4096 rows of
+    # (k+1)*N int32 = 64 MB (half as many at 64 bits, where a row is twice
+    # as wide).  Compiled level plans hold <= MAX_LEVEL_BATCH rotations,
+    # so a content group spans >= 8 contents.
+    MAX_MV_ACC_ROWS = 4096
+
+    @property
+    def _mv_acc_rows_cap(self) -> int:
+        return (self.MAX_MV_ACC_ROWS if self.params.torus_bits == 32
+                else self.MAX_MV_ACC_ROWS // 2)
+
+    def _device_chunks_many_mv(self, circuit: CompiledCircuit, C: int,
+                               wide_batch: bool):
+        """The packed run_many plan of a multi-value circuit, cached on the
+        circuit per (C, wide_batch, device): one step per (level, content
+        group) of at most ``_mv_acc_rows_cap`` rotations, each step a list
+        of rotation chunks (rot_slots, rot_coefs, rot_consts) of the widths
+        of ``_chunk_sizes`` and one finish (weights, leader, out_idx,
+        positions) over the group's packed ops.  A leader indexes the
+        concatenation of the step's chunk outputs: content c's rotation r
+        is row (c - g0) * R + r, actives before the tail padding."""
+        cache = circuit.__dict__.setdefault("_torch_chunks_many_mv", {})
+        key = (C, bool(wide_batch), str(self.device))
+        if key in cache:
+            return cache[key]
+        S = circuit.num_slots
+        dev = self._upload
+        steps = []
+        for lv in circuit.levels:
+            act = lv.lut_idx >= 0
+            R = lv.mv_rot_count
+            group = max(1, min(C, self._mv_acc_rows_cap // max(1, R)))
+            a_w, a_ld, a_out = (lv.mv_weights[act], lv.mv_leader[act],
+                                lv.out_idx[act])
+            r_slots, r_coefs, r_consts = (lv.rot_slots[:R], lv.rot_coefs[:R],
+                                          lv.rot_consts[:R])
+            for g0 in range(0, C, group):
+                g = min(group, C - g0)
+                offs = (np.arange(g0, g0 + g, dtype=np.int32) * S)[:, None]
+                t_rs = np.where(r_coefs[None] != 0,
+                                r_slots[None] + offs[:, None], 0).reshape(-1, 3)
+                t_rc = np.tile(r_coefs, (g, 1))
+                t_rk = np.tile(r_consts, g)
+                sizes = _chunk_sizes(g * R, wide_batch)
+                pad = sum(sizes) - g * R
+                t_rs = np.concatenate([t_rs, np.zeros((pad, 3), np.int32)])
+                t_rc = np.concatenate([t_rc, np.zeros((pad, 3), np.int32)])
+                t_rk = np.concatenate([t_rk, np.zeros(pad, np.int32)])
+                rot_chunks, c0 = [], 0
+                for w in sizes:
+                    sl = slice(c0, c0 + w)
+                    c0 += w
+                    rot_chunks.append((dev(t_rs[sl], I64), dev(t_rc[sl]),
+                                       dev(t_rk[sl])))
+                t_w = np.tile(a_w, (g, 1))
+                t_ld = (a_ld[None] + (np.arange(g, dtype=np.int32) * R)[:, None]
+                        ).reshape(-1)
+                t_out = (a_out[None] + offs).reshape(-1)
+                padb = self._mv_pad_rows(t_out.shape[0]) - t_out.shape[0]
+                t_w = np.concatenate([t_w, np.zeros((padb, t_w.shape[1]),
+                                                    np.int32)])
+                t_ld = np.concatenate([t_ld, np.zeros(padb, np.int32)])
+                t_out = np.concatenate([t_out, np.full(padb, S * C - 1,
+                                                       np.int32)])
+                steps.append((rot_chunks, (dev(t_w), dev(t_ld, I64),
+                                           dev(t_out, I64), lv.mv_positions)))
+        cache[key] = steps
+        return steps
+
     def run_many(self, circuit: CompiledCircuit, contents: np.ndarray,
                  wide_batch: "bool | None" = None) -> np.ndarray:
         """Match ONE compiled circuit against MANY encrypted contents.
 
         contents: [C, len, num_blocks, n+1] uint32 (uint64 at 64 bits) ->
         [C, num_blocks, n+1] ([C, R, num_blocks, n+1] for R roots).  Every
-        level's bootstrap batch spans all C contents (``_device_chunks_many``).
+        level's bootstrap batch spans all C contents (``_device_chunks_many``;
+        ``_device_chunks_many_mv`` for a multi-value circuit, whose
+        rotations of a step all read the slab before its finish writes).
         ``wide_batch`` adds the WIDE_LEVEL_BATCH launch width for big packed
         levels (default: on for a CUDA device, off elsewhere;
         FHE_REGEX_WIDE_BATCH=0|1 overrides).
         """
-        if getattr(circuit, "multivalue", False):
-            raise NotImplementedError(
-                "multi-value circuits are not ported yet (ROADMAP.md, "
-                "queue 1 item 4)")
+        self._check_plan(circuit)
         if wide_batch is None:
             env = os.environ.get("FHE_REGEX_WIDE_BATCH")
             wide_batch = (env == "1" if env is not None
@@ -330,9 +601,18 @@ class Executor:
                     + np.arange(L)[None, :]).reshape(-1)
             slab[self._upload(rows, I64)] = self._upload(
                 flat.reshape(C * L, n1).view(self._np_s), self._dtype)
-        luts, _ = self._device_plan(circuit)
-        for chunk in self._device_chunks_many(circuit, C, wide_batch):
-            self._run_level(slab, luts, *chunk)
+        if circuit.multivalue:
+            for rot_chunks, fin in self._device_chunks_many_mv(circuit, C,
+                                                               wide_batch):
+                accs = [self._mv_rotate(self._vlut, self._affine_combine(
+                    slab[s], coefs, consts)) for s, coefs, consts in rot_chunks]
+                weights, leader, out_idx, positions = fin
+                slab[out_idx] = self._mv_finish(torch.cat(accs), weights,
+                                                leader, positions)
+        else:
+            luts, _ = self._device_plan(circuit)
+            for chunk in self._device_chunks_many(circuit, C, wide_batch):
+                self._run_level(slab, luts, *chunk)
         roots = circuit.all_roots
         slots = [r.val.slot for r in roots if r.val.sign != 0]
         if slots:
@@ -358,7 +638,10 @@ class Executor:
         ([R, num_blocks, n+1] for R roots).
 
         With profile=True each level is synchronized and timed; per-level
-        stats land in ``self.last_run_stats``."""
+        stats land in ``self.last_run_stats`` (with the rotation batch of a
+        multi-value level), and the failure-probability contract at this
+        key's operating point in ``self.last_run_pfail``."""
+        self._check_plan(circuit)
         n1 = self.params.lwe_dimension + 1
         slab = torch.zeros((circuit.num_slots, n1), dtype=self._dtype,
                            device=self.device)
@@ -371,14 +654,23 @@ class Executor:
         stats = []
         for lv, dev in zip(circuit.levels, levels):
             t0 = time.perf_counter()
-            self._run_level(slab, luts, *dev)
+            if circuit.multivalue:
+                self._run_level_mv(slab, *dev)
+            else:
+                self._run_level(slab, luts, *dev)
             if profile:
                 if self.device.type == "cuda":
                     torch.cuda.synchronize(self.device)
-                stats.append({"width": int(lv.lut_idx.shape[0]),
-                              "active": int((lv.lut_idx >= 0).sum()),
-                              "seconds": time.perf_counter() - t0})
+                stat = {"width": int(lv.lut_idx.shape[0]),
+                        "active": int((lv.lut_idx >= 0).sum()),
+                        "seconds": time.perf_counter() - t0}
+                if circuit.multivalue:
+                    stat["rotations"] = int(lv.rot_slots.shape[0])
+                stats.append(stat)
         self.last_run_stats = stats
+        if profile:
+            self.last_run_pfail = circuit_pfail(
+                self.params, circuit, bsk_drop=_dev_key_drop(self._dev_key))
         return self._finalize(circuit, slab)
 
     def _finalize(self, circuit: CompiledCircuit, slab) -> np.ndarray:

@@ -10,6 +10,10 @@ against the JAX package's Pallas kernels #1, #2 and #4, bit for bit.
   routes, equal JAX ``pallas`` and ``pallas-bg`` (two batch blocks and one).
 * The kernel wrappers take the plain version on CPU tensors, launch
   nothing there, and validate batch blocks as the JAX package does.
+* The layout of the tensor-core ``ext_product`` of ``csrc/blind_rotate.cu``
+  (balanced int8 limbs of [g, -g], byte-shifted reversed windows read at
+  the m16n8k32 fragment addresses, four int8 products combined mod 2^32)
+  is replayed by a plain int64 twin and equals ``external_product_step``.
 
 Inputs come from numpy seeds and the shared ``keys`` / ``noisy_keys``
 fixtures; tolerance is zero (integer arithmetic mod 2^32).  The CUDA
@@ -99,6 +103,88 @@ def test_external_product_step_matches_pallas(B):
                                      acc_t)
     assert np.array_equal(got.numpy(), np.asarray(want))
     assert np.array_equal(acc_t.numpy(), acc.view(np.int32))   # untouched
+
+
+# ---- the layout of csrc/blind_rotate.cu's ext_product, replayed ----
+EXT_TN, EXT_NT = 64, 2      # coefficients per block; n8 tiles per warp
+M32 = 0xFFFFFFFF
+
+
+def _limbs8(w: torch.Tensor) -> torch.Tensor:
+    """[...] uint32 values in int64 -> [4, ...] balanced int8 limbs with
+    w = sum_l 2^(8l) limb_l mod 2^32 (the kernel's ``limbs8``)."""
+    w = w & M32
+    out = []
+    for _ in range(4):
+        v = ((w + 128) & 0xFF) - 128
+        out.append(v)
+        w = ((w - v) & M32) >> 8
+    return torch.stack(out)
+
+
+def _ext_product_twin(digits, ggsw, acc):
+    """The kernel's arithmetic in int64 on the CPU.  Column m of block
+    M0 = m - m % 64 and row t come from lane groupID g = m % 8, n8 tile
+    (m % 64) // 8, thread-in-group (t % 16) // 4 and half t % 32 // 16 of
+    a 32-deep k-step; the B-fragment word is read from byte-shifted copy
+    s = (3 - g) & 3 at byte (yb - s) + 16 * half + t % 4, copy s byte i
+    holding rev[i + s], rev[y] = limbs of dbl[(M0 + 63 - y) mod 2N]."""
+    B, rows, N = digits.shape
+    k1 = ggsw.shape[1]
+    g64 = ggsw.to(torch.int64) & M32
+    dbl = torch.cat([g64, (-g64) & M32], -1)                  # [rows, k1, 2N]
+    m, t = torch.arange(N), torch.arange(N)
+    M0 = m - m % EXT_TN
+    g = (m - M0) % 8
+    s = (3 - g) & 3
+    half, tig, j = (t % 32) // 16, (t % 16) // 4, t % 4
+    yb = (t - t % 32 + tig * 4)[:, None] + EXT_TN - 1 - (m - M0)[None, :]
+    assert ((yb - s) % 4 == 0).all()                    # aligned word loads
+    byte = (yb - s) + 16 * half[:, None] + j[:, None]
+    assert (byte >= 0).all() and (byte < N + EXT_TN).all()   # inside a copy
+    z = (M0[None, :] + EXT_TN - 1 - (byte + s)) % (2 * N)
+    L = _limbs8(dbl[:, :, z])                        # [4, rows, k1, t, m]
+    Bm = L.permute(0, 1, 3, 2, 4).reshape(4, rows * N, k1 * N)
+    assert Bm.abs().max() <= 128
+    d = digits.reshape(B, rows * N).to(torch.int64)
+    out = acc.to(torch.int64).reshape(B, -1)
+    for l in range(4):
+        p = d @ Bm[l]
+        assert p.abs().max() < 2 ** 31                  # exact in int32
+        out = out + p * (1 << (8 * l))
+    return tpbs.wrap_i32(out & M32).reshape(B, k1, N)
+
+
+def test_limbs8_are_balanced():
+    words = torch.tensor([0, 0x7F, 0x80, 0xFF, 0x80000000, 0xFFFFFFFF,
+                          0x7F7F7F80, 0x80808080, 0x807F80FF],
+                         dtype=torch.int64)
+    L = _limbs8(words)
+    assert L.min() >= -128 and L.max() <= 127
+    assert (L[:, 6] == -128).all()            # every limb of 0x7F7F7F80
+    back = sum(L[l] * (1 << (8 * l)) for l in range(4)) & M32
+    assert torch.equal(back, words)
+
+
+@pytest.mark.parametrize("B", [1, 8, 37])
+def test_ext_product_limb_layout_matches_plain(B):
+    """Keys with the words 0x80000000, 0xFFFFFFFF and words whose limbs
+    are -128; digits at both ends of [-64, 64)."""
+    P = _port_params(TEST_PARAMS)
+    N, k1 = P.polynomial_size, P.glwe_dimension + 1
+    rows = k1 * P.pbs_level
+    rng = np.random.default_rng(500 + B)
+    ggsw = _random_u32(rng, (rows, k1, N))
+    ggsw.reshape(-1)[:8] = [0x80000000, 0xFFFFFFFF, 0x7F7F7F80, 0x80808080,
+                            0x80000080, 0, 1, 0x7FFFFFFF]
+    ggsw[2, 1, -4:] = [0x7F7F7F80, 0xFFFFFFFF, 0x80000000, 0x80]
+    digits = rng.integers(-64, 64, size=(B, rows, N)).astype(np.int8)
+    digits[0, 0, :3] = [-64, 63, -64]
+    acc = _random_u32(rng, (B, k1, N))
+    want = tpbs.external_product_step(P, torch.from_numpy(digits),
+                                      _t(ggsw), _t(acc))
+    got = _ext_product_twin(torch.from_numpy(digits), _t(ggsw), _t(acc))
+    assert torch.equal(got, want)
 
 
 def _msgs_and_luts(params, keys, B, seed):

@@ -6,11 +6,15 @@
   ``has_match_many_positions``, ``has_match_patterns``,
   ``has_match_positions``, ``has_match_long`` (windowed and anchored),
   ``has_match_many_long``, ``count_matches`` and ``run_circuit`` give the
-  JAX package's ciphertexts bit for bit (classic plan, Python builder):
-  the same numpy contents go through both packages under the same keys.
+  JAX package's ciphertexts bit for bit (each package's default plan,
+  which is multi-value where the packed paths' auto rule picks it; Python
+  builder): the same numpy contents go through both packages under the
+  same keys.
 * The CLI's ``--count``, ``--positions``, ``--long`` and
-  ``--branch-budget``; ``multivalue=True`` raises; without a CUDA device
-  the entry points raise unless ``device="cpu"`` is given.
+  ``--branch-budget``; ``multivalue=True`` on every entry point equals the
+  JAX package; a circuit flagged multi-value without its plan is refused;
+  without a CUDA device the entry points raise unless ``device="cpu"`` is
+  given.
 
 Tolerance is zero.  Contents are real (noisy) encryptions from the JAX
 package at ``TEST_PARAMS_NOISY``, and at ``TEST_PARAMS_64`` for one case.
@@ -31,7 +35,7 @@ from fhe_regex_tpu_torch.regex.engine import compile_match
 
 torch.set_num_threads(2)
 
-JAX_KW = dict(engine="python", multivalue=False, backend=None)
+JAX_KW = dict(engine="python", backend=None)
 
 
 @pytest.fixture(scope="module")
@@ -217,21 +221,28 @@ SINGLE = ["has_match", "has_match_patterns", "has_match_positions",
 
 @pytest.mark.parametrize("name", PACKED + SINGLE)
 def test_multivalue_not_ported(both, name):
-    (ck, _), (_, tsk) = both
+    """multivalue=True, which raised before multi-value bootstrapping was
+    ported, now runs on every entry point and equals the JAX package."""
+    (ck, sk), (_, tsk) = both
     ct = _enc(ck, ["ab"])
     arg = ["/a/"] if "patterns" in name else "/a/"
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        getattr(port, name)(tsk, ct if name in PACKED else ct[0], arg,
-                            device="cpu", multivalue=True)
+    x = ct if name in PACKED else ct[0]
+    got = getattr(port, name)(tsk, x, arg, device="cpu", multivalue=True)
+    want = getattr(J, name)(sk, x, arg, multivalue=True, **JAX_KW)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
 
 
 def test_run_many_refuses_multivalue_circuit(both):
+    """A circuit flagged multi-value without its multi-value plan (the
+    level plans of compile_circuit(multivalue=True)) is refused."""
     circuit = tex.compile_circuit(both[1][1].params,
                                   *compile_match(2, "/a/"))
     circuit.multivalue = True
     ex = port.executor_for(both[1][1], device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(ValueError, match="multi-value plan"):
         ex.run_many(circuit, _enc(both[0][0], ["ab"]))
+    with pytest.raises(ValueError, match="multi-value plan"):
+        ex.run(circuit, _enc(both[0][0], ["ab"])[0])
 
 
 def test_no_cuda_needs_explicit_cpu(both, monkeypatch, capsys):
