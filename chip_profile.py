@@ -4,7 +4,7 @@
     python3 chip_profile.py
 
 Needs one CUDA device; reuses the keys that ``chip_smoke.py`` caches in
-``.cache/`` (makes them otherwise).  Two runs, each once warm and then
+``.cache/`` (makes them otherwise).  Three runs, each once warm and then
 once under ``torch.profiler``:
 
 1. ``exact_literal`` of ``chip_smoke.REQUESTS`` through ``has_match`` on
@@ -12,7 +12,10 @@ once under ``torch.profiler``:
    from Python);
 2. ``has_match_many`` on the configuration of ``benchmarks/serving.py``
    (32 contents of 16 characters, ``/abc/``) on ``cuda-bg``, on its
-   default (multi-value) plan.
+   default (multi-value) plan;
+3. ``has_match_many`` on the first 8 of those contents at
+   TPU64_MESSAGE_2_CARRY_2 on ``cuda64-bg`` (``ext_product64`` and
+   ``stage1_64``), on its default (multi-value) plan.
 
 For each it prints the wall time of the profiled call, the device's busy
 time (the union of its kernel and copy intervals), the idle share
@@ -22,17 +25,22 @@ cost lengthens the wall time a little, so the idle share is an upper
 bound.  Then the blind rotation's time by batch width (B = 8 ... 512,
 CUDA events, 2 samples after a warm call) on the default backend of each
 torus width (``cuda-fused``, ``cuda64-bg``), on the production keys and
-random mod-switched inputs.  The last line is a JSON object with these
+random mod-switched inputs, and the registers and spills of each kernel
+of ``csrc/blind_rotate64.cu`` as ``nvcc -Xptxas -v`` reports them (one
+more compile of that source).  The last line is a JSON object with these
 numbers.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from collections import defaultdict
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -92,7 +100,7 @@ def widths(params, sk) -> dict:
     from fhe_regex_tpu_torch.ops.pbs import prepare_server_key, rotation_fn
 
     dk = prepare_server_key(params, sk, "cuda")
-    rotate = rotation_fn(dk.backend)
+    rotate = rotation_fn(dk)
     N, n = params.polynomial_size, params.lwe_dimension
     gen = torch.Generator().manual_seed(5)
     luts = torch.randint(-2**31, 2**31, (1, N), generator=gen,
@@ -103,13 +111,13 @@ def widths(params, sk) -> dict:
         ms = torch.randint(0, 2 * N, (B, n + 1), generator=gen,
                            dtype=torch.int32).to("cuda")
         idx = torch.zeros(B, dtype=torch.int32, device="cuda")
-        rotate(params, dk.bsk, luts, idx, ms)          # warm
+        rotate(luts, idx, ms)                          # warm
         times = []
         for _ in range(2):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            rotate(params, dk.bsk, luts, idx, ms)
+            rotate(luts, idx, ms)
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
@@ -117,6 +125,39 @@ def widths(params, sk) -> dict:
     print(f"rotation ms by width, {params.name} on {dk.backend}: "
           + ", ".join(f"B={B} {' / '.join(f'{t:.3f}' for t in v)}"
                       for B, v in out.items()), flush=True)
+    return out
+
+
+def ptxas_report() -> list:
+    """[{kernel, registers, spill_stores, spill_loads}] of the 64-bit
+    source, from ``nvcc -Xptxas -v``."""
+    from fhe_regex_tpu_torch.ops import pbs_cuda
+
+    pbs_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=pbs_cuda.BUILD_DIR) as tmp:
+        res = subprocess.run(
+            [pbs_cuda._nvcc(), *pbs_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             "-o", str(Path(tmp) / "k.o"),
+             str(pbs_cuda.CSRC / "blind_rotate64.cu")],
+            capture_output=True, text=True, check=True)
+    out = []
+    for line in (res.stdout + res.stderr).splitlines():
+        entry = re.search(r"Compiling entry function '.*?\d+"
+                          r"(ext_product64|stage1_64|acc_init64)"
+                          r"(?:ILi(\d)ELi(\d)E)?", line)
+        if entry:
+            name, nd, mt = entry.groups()
+            out.append({"kernel": name + (f"<{nd}, {mt}>" if nd else "")})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill and out:
+            out[-1].update(spill_stores=int(spill[1]),
+                           spill_loads=int(spill[2]))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and out:
+            out[-1]["registers"] = int(regs[1])
+    for k in out:
+        print(f"ptxas {k}", flush=True)
     return out
 
 
@@ -156,9 +197,22 @@ def main() -> int:
             raise AssertionError("has_match_many: wrong bits on cuda-bg")
 
     runs.append(profiled(f"has_match_many C={len(cts)} on cuda-bg", serve))
+    params64 = get_params(smoke.FULL64)
+    ck64, sk64, _ = smoke._keys(params64)
+    cts64 = np.stack([port.encrypt_str(ck64, c) for c in smoke.SERVE[:8]])
+
+    def serve64():
+        res = port.has_match_many(sk64, cts64, smoke.SERVE_PATTERN,
+                                  backend="cuda64-bg", device=smoke.DEVICE)
+        if [port.decrypt(ck64, r) for r in res] != want[:8]:
+            raise AssertionError("has_match_many: wrong bits on cuda64-bg")
+
+    runs.append(profiled(f"has_match_many C={len(cts64)} on cuda64-bg",
+                         serve64))
     table = {name: widths(get_params(name), smoke._keys(get_params(name))[1])
              for name in (smoke.FULL, smoke.FULL64)}
-    print(json.dumps({"device": smi, "runs": runs, "widths": table}))
+    print(json.dumps({"device": smi, "runs": runs, "widths": table,
+                      "ptxas64": ptxas_report()}))
     return 0
 
 

@@ -18,10 +18,14 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    the plain backend, and one small request against the CPU;
 4. 32-bit throughput: one decrypt-checked PBS batch at B = 256;
 5. 64-bit kernels vs plain, tolerance zero (mod 2^64): ``cuda64`` against
-   ``blind_rotate64`` at TEST_PARAMS_64 (B = 8, 37) and
-   TPU64_MESSAGE_2_CARRY_2 (B = 8, 256); ``cuda64-bg`` against the plain
-   rotation on its rounded key at TPU64_MESSAGE_2_CARRY_2 (B = 8, 256), and
-   at B = 256 in one block and in two (tb = 256, 128);
+   ``blind_rotate64`` at TEST_PARAMS_64 (B = 8, 37: one int8 limb per
+   digit); at TEST_PARAMS_64 with the production digit (base 2^23, one
+   level: three limbs), ``cuda64`` at B = 8, 37 and ``cuda64-bg`` at B = 8,
+   40 on keys rounded by the drops (1, 2) and (2, 2); at
+   TPU64_MESSAGE_2_CARRY_2 ``cuda64`` at B = 8, 37, 256 and ``cuda64-bg``
+   on its rounded key with its drop (1, 2) at B = 8, 256, and at B = 256
+   in one block and in two (tb = 256, 128) and with the drop (0, 0), all
+   equal;
 6. 64-bit main path: the six requests at TPU64_MESSAGE_2_CARRY_2 on the
    default backend (``cuda64-bg``), then one request on ``cuda64``, checked
    bit for bit against ``torch64`` on the card, and one small request
@@ -71,6 +75,7 @@ larger; the H100 SXM data sheet's peaks).  The last line is
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -227,9 +232,11 @@ def limb_pairs(params, drop=(0, 0)) -> float:
     key limbs at 32 bits; at 64 bits each (digit limb, key limb) pair of
     weight below 2^64, without the key limbs a drop zeroes, averaged over
     the mask and body columns."""
+    from fhe_regex_tpu_torch.ops.pbs64 import n_digit_limbs
+
     if params.torus_bits == 32:
         return 4.0
-    nd = -(-(params.pbs_base_log + 1) // 8)          # digit limbs
+    nd = n_digit_limbs(params.pbs_base_log)
     k = params.glwe_dimension
     per_c = [sum(1 for dl in range(nd)
                  for j in range(drop[0] if c < k else drop[1], 8)
@@ -248,6 +255,36 @@ def rotation_bound(params, B: int, L: int, drop=(0, 0)):
     nbytes = (n * rows * k1 * N * word + B * (n + 2) * 4 + L * N * word
               + B * k1 * N * word)
     return _bound(2 * macs * limb_pairs(params, drop), nbytes)
+
+
+def digits3(port, pbs_cuda, small64):
+    """Phase 5 at TEST_PARAMS_64 with the production digit (base 2^23, one
+    level, so three int8 limbs per digit and two digit rows): #5 at B = 8
+    and 37, #6 at B = 8 and 40 (one block, a ragged 32-row tile) on the
+    key rounded by the drops (1, 2) and (2, 2), each bit-equal to the
+    plain rotation on the same key.  Returns the largest errors of #5 and
+    #6."""
+    from fhe_regex_tpu_torch.ops.pbs64 import (blind_rotate64, round_bsk64,
+                                               to_torch64)
+
+    params = dataclasses.replace(small64, name="TEST_PARAMS_64_B23",
+                                 pbs_base_log=23, pbs_level=1)
+    ck, sk = port.gen_keys(params, seed=13)
+    bsk = to_torch64(sk.bsk).to(DEVICE)
+    e5 = [kernel_vs_plain("blind_rotate_fused64", params,
+                          pbs_cuda.blind_rotate_fused64, blind_rotate64, bsk,
+                          _rotation_inputs(params, ck, B, seed=B),
+                          timed=False)[0] for B in (8, 37)]
+    e6 = []
+    for drop in ((1, 2), (2, 2)):
+        rounded = to_torch64(round_bsk64(params, sk.bsk, drop)).to(DEVICE)
+        for B in (8, 40):
+            e6.append(kernel_vs_plain(
+                f"blind_rotate_fused64_bg drop {drop}", params,
+                lambda *a: pbs_cuda.blind_rotate_fused64_bg(*a, drop=drop),
+                blind_rotate64, rounded,
+                _rotation_inputs(params, ck, B, seed=B + 1), timed=False)[0])
+    return max(e5), max(e6)
 
 
 def _reset_counts(pbs_cuda) -> None:
@@ -699,6 +736,9 @@ def main() -> int:
             "blind_rotate_fused64", small64, pbs_cuda.blind_rotate_fused64,
             blind_rotate64, dk_s64.bsk,
             _rotation_inputs(small64, ck_s64, B, seed=B), timed=False)[0])
+    e5, e6 = digits3(port, pbs_cuda, small64)
+    errs64.append(e5)
+    errs64_bg.append(e6)
     full64 = get_params(FULL64)
     ck64, sk64, keygen64_s = _keys(full64)
     print(f"keys {full64.name}: keygen {keygen64_s:.1f} s (0 = cached)",
@@ -708,7 +748,17 @@ def main() -> int:
     if dk64_bg.drop64 != (1, 2):
         raise AssertionError(f"cuda64-bg key drop {dk64_bg.drop64}, want "
                              f"(1, 2) at {full64.name}")
+    drop = dk64_bg.drop64
+
+    def bg64(*a, **kw):
+        return pbs_cuda.blind_rotate_fused64_bg(*a, drop=drop, **kw)
+
     times64, times64_bg = {}, {}
+    errs64.append(kernel_vs_plain(
+        "blind_rotate_fused64", full64, pbs_cuda.blind_rotate_fused64,
+        blind_rotate64, dk64.bsk, _rotation_inputs(full64, ck64, 37,
+                                                   seed=237),
+        timed=False)[0])
     for B in (8, 256):
         x = _rotation_inputs(full64, ck64, B, seed=200 + B)
         err, k_s, p_s = kernel_vs_plain(
@@ -717,21 +767,21 @@ def main() -> int:
         errs64.append(err)
         times64[B] = (k_s, p_s)
         err, k_s, p_s = kernel_vs_plain(
-            "blind_rotate_fused64_bg", full64,
-            pbs_cuda.blind_rotate_fused64_bg, blind_rotate64, dk64_bg.bsk, x,
-            timed=True)
+            "blind_rotate_fused64_bg", full64, bg64, blind_rotate64,
+            dk64_bg.bsk, x, timed=True)
         errs64_bg.append(err)
         times64_bg[B] = (k_s, p_s)
     args = (full64, dk64_bg.bsk, x["luts"], x["lut_idx"], x["ms"])
-    one, one_s = _timed(lambda: pbs_cuda.blind_rotate_fused64_bg(*args,
-                                                                 tb=256))
-    two, two_s = _timed(lambda: pbs_cuda.blind_rotate_fused64_bg(*args,
-                                                                 tb=128))
-    if not torch.equal(one, two):
-        raise AssertionError("blind_rotate_fused64_bg: tb=256 and tb=128 "
-                             "outputs differ")
+    one, one_s = _timed(lambda: bg64(*args, tb=256))
+    two, two_s = _timed(lambda: bg64(*args, tb=128))
+    whole, whole_s = _timed(lambda: pbs_cuda.blind_rotate_fused64_bg(
+        *args, drop=(0, 0)))
+    if not (torch.equal(one, two) and torch.equal(one, whole)):
+        raise AssertionError("blind_rotate_fused64_bg: tb=256, tb=128 and "
+                             "drop (0, 0) outputs differ")
     print(f"blind_rotate_fused64_bg B=256: tb=256 {one_s * 1e3:.3f} ms, "
-          f"tb=128 {two_s * 1e3:.3f} ms, equal", flush=True)
+          f"tb=128 {two_s * 1e3:.3f} ms, drop (0, 0) {whole_s * 1e3:.3f} ms "
+          f"(all limb pairs), equal", flush=True)
 
     # ---- phase 6: the 64-bit main path, six requests on cuda64-bg ----
     main64_bg, results64 = main_path(port, pbs_cuda, full64, ck64, sk64,
@@ -785,7 +835,6 @@ def main() -> int:
     B = 256
     L = 2                                  # LUTs of _rotation_inputs
     step_macs = B * rows * k1 * N * N
-    drop = dk64_bg.drop64
     kernels = [
         entry("external_product_step", "blind_rotate.cu", 114, ep_launches,
               max(steps[b]["ep_err"] for b in steps), steps[B]["ep"],
@@ -810,6 +859,11 @@ def main() -> int:
               main64_bg, max(errs64_bg), times64_bg[B][0] * 1e3,
               times64_bg[B][1] * 1e3, rotation_bound(full64, B, L, drop)),
     ]
+    narrow = {name: rotation_bound(p, 8, L, d) for name, p, d in (
+        ("blind_rotate_fused", full, (0, 0)),
+        ("blind_rotate_fused64", full64, (0, 0)),
+        ("blind_rotate_fused64_bg", full64, drop))}
+    print(f"bounds at B=8 (ms, by): {narrow}", flush=True)
     print(f"chip_smoke {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,64 +2,147 @@
 //
 // Replaces fhe_regex_tpu/ops/pbs_pallas.py::_fused_blindrot64_stacked_kernel
 // and _fused_blindrot64_kernel (with _acc64_init; backend `pallas64`) and
-// _fused_blindrot64_bg_kernel (backend `pallas64-bg`), and computes exactly
-// what fhe_regex_tpu_torch/ops/pbs64.py::blind_rotate64 computes, bit for
-// bit: [B, n+1] mod-switched ciphertexts -> [B, k+1, N] uint64 accumulators.
+// _fused_blindrot64_bg_kernel (backend `pallas64-bg`, on a key rounded by its
+// limb drop), and computes exactly what
+// fhe_regex_tpu_torch/ops/pbs64.py::blind_rotate64 computes, bit for bit:
+// [B, n+1] mod-switched ciphertexts -> [B, k+1, N] uint64 accumulators.
 //
 // What bounds it.  Every CMUX step is an external product of the B
-// accumulators' gadget digits with the step's GGSW: at the 64-bit
-// production set (n=866, N=2048, k=1, one base-2^23 digit per component,
-// so 2 digit rows) that is B * 2 * 2 * N^2 = 1.7e7 * B multiply-adds mod
-// 2^64 per step, on the CUDA cores.  A 64-bit multiply-add costs about
-// three 32-bit IMAD slots, against one for the 32-bit kernel, but the
-// 64-bit set has a third of the digit rows, so a step costs about what a
-// 32-bit step does.  The accumulators (B * 32 KB) and one step's GGSW
-// (64 KB) stay in the 50 MB L2.
+// accumulators' gadget digits with the step's GGSW, a [B, rows*N] x
+// [rows*N, (k+1)*N] product mod 2^64 whose right side is negacyclic
+// Toeplitz.  Split into int8 limbs (8 of a key word, nd of a digit), the
+// product is one int8 product per limb pair of weight below 2^64: at the
+// production set (n=866, N=2048, k=1, one base-2^23 digit per component, so
+// rows = 2 and nd = 3) 21 pairs, or 16.5 on average on a key rounded by the
+// drop (1, 2).  That is B * 2 * 2 * N^2 * 21 = 3.5e8 * B int8 multiply-adds
+// per step, which the tensor cores run at 1,979 TOP/s dense: 0.091 ms per
+// step at B = 256, the bound.  The accumulators (B * 32 KB) and one step's
+// GGSW (64 KB) stay in the 50 MB L2.
 //
-// What the design does about it.
-//  * The key side is never materialised: a block stages the doubled window
-//    [g, -g mod 2^64] of one GGSW polynomial in shared memory, so the
-//    Toeplitz entry M[t, m] = dbl[(m - t) mod 2N] is a shared-memory read.
-//    Each key word is stored as a signed low half and an adjusted high
-//    half, k = lo_s + hi' * 2^32 mod 2^64, so d * k mod 2^64 is one
-//    signed 32x32->64 multiply-add (IMAD.WIDE) into a 64-bit sum plus one
-//    32-bit IMAD into a separate high sum, joined once at the end.
-//  * Each thread owns 4 batch rows x 8 consecutive coefficients; along t
-//    the 8 coefficients read a sliding window of the key, so 8 steps of t
-//    cost 15 key reads per half for 256 multiply-adds.  The window is
-//    padded (one word every 8) so the 32 lanes hit 32 banks.
-//  * The grid spans (batch tile, component x coefficient tile, digit row);
-//    rows meet through 64-bit atomic adds, exact mod 2^64 in any order.
+// What the design does about it (`ext_product64`).
+//  * A limb GEMM on the int8 tensor cores (mma.sync m16n8k32, s8 x s8 ->
+//    s32), in the shape of the 32-bit `ext_product` (csrc/blind_rotate.cu).
+//    Each key word of the doubled window [g, -g mod 2^64] is split into 8
+//    balanced int8 limbs, g and -g each on its own (no limb is ever
+//    negated: -(-128) is not an int8).  Each digit d lies in
+//    [-2^(base_log-1), 2^(base_log-1)); `stage1_64` writes it as nd balanced
+//    int8 limbs, d = sum_dl 2^(8 dl) d_dl, the top one in [-64, 64] at
+//    base_log = 23.
+//  * Products go to int32 sums per weight class cw = dl + j <= 7 (classes
+//    of weight 2^64 and above vanish mod 2^64).  A block covers one digit
+//    row, so a class sum has at most min(nd, 8) pairs of N terms each at
+//    most 128 * 128: nd * N * 2^14 < 2^31 needs nd * N < 2^17, and the
+//    wrapper admits nd <= 3 and N <= 4096 (3 * 4096 * 2^14 = 2.0e8).  At
+//    the production set it is 3 * 2048 * 2^14 = 1.0e8.
+//  * The epilogue sign-extends each class sum and forms
+//    sum_cw (uint64)(int64)P_cw << 8 cw, exact mod 2^64; digit rows meet
+//    through 64-bit atomic adds, exact in any order.
+//  * Key limbs below the drop of the block's component are zero on a key
+//    rounded by that drop (round_bsk64), and so are those of -g: the
+//    block skips every pair with j below it (drop (1, 2): 18 pairs for the
+//    mask, 15 for the body).  The caller passes the drop the key was
+//    rounded by; the rotation of `cuda64` passes (0, 0).
+//  * No Toeplitz matrix in memory.  A B-fragment register of m16n8k32 is 4
+//    consecutive K entries (t) of one column (m), i.e. 4 consecutive
+//    entries of the REVERSED key window rev[y] = dbl[(M0 + TN - 1 - y) mod
+//    2N], y = t + M0 + TN - 1 - m.  The block keeps each of the 8 limbs'
+//    reversed windows in shared memory in 4 byte-shifted copies (copy s
+//    holds rev from byte s), so every fragment register is one aligned
+//    32-bit load.  A lane always reads copy (3 - groupID) & 3; copies are
+//    laid out 8 banks apart, so a warp's loads do not conflict.
+//  * The digits (the left operand, contiguous along t) are staged by
+//    cp.async in a two-stage ring of 128-deep chunks, the block row's nd
+//    limb planes side by side, rows padded by 16 bytes so the A-fragment
+//    loads hit 32 banks.
+//  * The grid spans (batch tile, component x 64-coefficient tile, digit
+//    row): 16 batch rows (MT = 1) up to B = 32, else 32 (MT = 2), so an
+//    8-wide level runs 128 blocks.  A block is 8 warps of one n8 tile
+//    each: a narrow level has one block per SM, and one warp alone issues
+//    `mma` far below the tensor cores' rate, so 8 warps there beat 4 warps
+//    of two tiles.  Shared memory at N = 2048, nd = 3 and MT = 2: 32
+//    window copies of 552 words (70.7 KB) plus two stages of 3 x 32 rows
+//    of 144 bytes (27.6 KB), 98.3 KB: two blocks per SM (a 256-deep chunk
+//    would leave one).  A thread holds MT * 8 * 4 = 64 class sums at
+//    MT = 2 (registers and spills: `chip_profile.py` prints what
+//    `nvcc -Xptxas -v` reports).
 //  * Per step: one `stage1_64` launch (rotate by a~_i, subtract, round,
-//    balanced digits into an int32 scratch) and one `ext_product64` launch,
+//    balanced digits split into int8 limbs) and one `ext_product64` launch,
 //    from a step loop on the host side of this library.
 //
 // What the TPU kernels needed and this one does not: the (lo, hi) int32
-// pairs with explicit carries, the 8 int8 key limbs and 3 digit limbs in
-// weight classes for the MXU, the roll chains standing in for indexed
+// pairs with explicit carries, the roll chains standing in for indexed
 // reads, WIN and sublane padding, and (in the batch-grid kernel) the HBM
-// accumulator with DMA staging and the skipping of weight classes below
-// the key-limb drop.  Here the accumulator lives in global memory (L2),
-// and a rounded key needs no skipping: its low bytes are zero, and the
-// uint64 products are exact all the same.
-//
-// All torus arithmetic is uint64_t: wraparound is defined there.
+// accumulator with DMA staging.  The accumulator lives in global memory
+// (L2) as uint64; all torus arithmetic is uint64_t: wraparound is defined
+// there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads1 = 256;      // stage1_64 / acc_init64 block
-constexpr int BT = 4;               // batch rows per thread
-constexpr int MT = 8;               // consecutive coefficients per thread
-constexpr int kWarps = 2;           // warps per ext_product64 block
-constexpr int TBB = BT * kWarps;    // batch rows per block
-constexpr int TMB = MT * 32;        // coefficients per block
-constexpr int TCH = 256;            // digits staged per chunk of t
-constexpr int U = 8;                // t unroll (sliding-window length)
+constexpr int kThreads1 = 256;        // stage1_64 / acc_init64 block
+constexpr int kWarps = 8;             // warps per ext_product64 block
+constexpr int NT = 1;                 // n8 tiles per warp
+constexpr int TN = kWarps * NT * 8;   // coefficients per block (64)
+constexpr int KC = 128;               // digits (t) staged per chunk
+constexpr int QC = KC / 16;           // 16-byte pieces of a staged row
+constexpr int ASTRIDE = KC + 16;      // bytes per staged digit row
+constexpr int NSTAGE = 2;             // cp.async ring depth
+constexpr int NLIMB = 8;              // int8 limbs of a key word
+constexpr int NCOPY = 4;              // byte-shifted copies of a window
 
-__host__ __device__ __forceinline__ int pad_idx(int y) { return y + (y >> 3); }
+// Words of one shifted window copy, and the stride between copies: at
+// least that, and 8 mod 32 so the four copies sit 8 banks apart.
+__host__ __device__ __forceinline__ int win_words(int N) { return (N + TN) / 4; }
+__host__ __device__ __forceinline__ int win_stride(int N) {
+  return ((win_words(N) - 8 + 31) / 32) * 32 + 8;
+}
+
+// The eight balanced int8 limbs of w (w = sum_l 2^(8l) limb_l mod 2^64),
+// limb l in byte l.  Peeling limb_l = ((w + 128) & 255) - 128, w = (w -
+// limb_l) >> 8 carries exactly as adding 0x80 to every byte does, so byte
+// l of w + 0x80..80 is limb_l + 128.
+__device__ __forceinline__ uint64_t limbs8(uint64_t w) {
+  constexpr uint64_t kBias = 0x8080808080808080ull;
+  return (w + kBias) ^ kBias;
+}
+
+// out[l] = bytes l of a, b, c, d, in that order from the low byte.
+__device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c,
+                                           uint32_t d, uint32_t (&out)[4]) {
+  const uint32_t ab_lo = __byte_perm(a, b, 0x5140);   // a0 b0 a1 b1
+  const uint32_t ab_hi = __byte_perm(a, b, 0x7362);   // a2 b2 a3 b3
+  const uint32_t cd_lo = __byte_perm(c, d, 0x5140);
+  const uint32_t cd_hi = __byte_perm(c, d, 0x7362);
+  out[0] = __byte_perm(ab_lo, cd_lo, 0x5410);         // a0 b0 c0 d0
+  out[1] = __byte_perm(ab_lo, cd_lo, 0x7632);         // a1 b1 c1 d1
+  out[2] = __byte_perm(ab_hi, cd_hi, 0x5410);
+  out[3] = __byte_perm(ab_hi, cd_hi, 0x7632);
+}
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
 
 // acc[b, c<k, :] = 0;  acc[b, k, m] = (X^{r0} * lut)[m],
 // r0 = (2N - b~) mod 2N,  lut = luts[lut_idx[b]].
@@ -84,12 +167,12 @@ __global__ void acc_init64(const int32_t* __restrict__ cts_ms,
   acc[e] = v;
 }
 
-// digits[b, c*l + j, m] = j-th most significant balanced digit of
-// (X^{a_i} * acc[b, c])[m] - acc[b, c, m], as int32.
+// digits[b, (c*l + j)*nd + dl, m] = int8 limb dl of the j-th most
+// significant balanced digit of (X^{a_i} * acc[b, c])[m] - acc[b, c, m].
 __global__ void stage1_64(const int32_t* __restrict__ cts_ms,
                           const uint64_t* __restrict__ acc,
-                          int32_t* __restrict__ digits, int B, int n, int k1,
-                          int N, int level, int base_log, int step) {
+                          int8_t* __restrict__ digits, int B, int n, int k1,
+                          int N, int level, int base_log, int nd, int step) {
   long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= (long long)B * k1 * N) return;
   int m = (int)(e % N);
@@ -105,143 +188,245 @@ __global__ void stage1_64(const int32_t* __restrict__ cts_ms,
   uint64_t state = (diff + (1ull << (shift - 1))) >> shift;
   uint64_t base = 1ull << base_log;
   uint64_t half = base >> 1;
-  int32_t* out = digits + ((long long)b * k1 * level + (long long)c * level) * N + m;
+  int8_t* out = digits + ((long long)b * k1 + c) * level * nd * N + m;
   for (int j = level - 1; j >= 0; --j) {   // least significant first
     uint64_t d = state & (base - 1ull);
     long long sd = d >= half ? (long long)d - (long long)base : (long long)d;
     state = (state - (uint64_t)sd) >> base_log;
-    out[(long long)j * N] = (int32_t)sd;
+    for (int dl = 0; dl < nd; ++dl) {     // balanced: ((v+128) & 255) - 128
+      const int8_t limb = (int8_t)(sd & 0xFF);
+      out[((long long)j * nd + dl) * N] = limb;
+      sd = (sd - limb) >> 8;
+    }
   }
 }
 
-// acc[b, c, m] += sum_t digits[b, r, t] * dbl_{r,c}[(m - t) mod 2N]  (mod 2^64)
-// over the block's (batch tile, c, coefficient tile) and its one row r.
+// acc[b, c, m] += sum_t digit[b, r, t] * dbl_{r,c}[(m - t) mod 2N] (mod 2^64)
+// over the block's batch tile (16 * MT rows from b0), component c,
+// coefficient tile [M0, M0 + TN) and its one digit row r, the digit given
+// as ND int8 limb planes.
+template <int ND, int MT>
 __global__ void __launch_bounds__(kWarps * 32)
-ext_product64(const int32_t* __restrict__ digits,
+ext_product64(const int8_t* __restrict__ digits,   // [B, rows*ND, N]
               const uint64_t* __restrict__ ggsw,   // this step: [rows, k1, N]
-              uint64_t* __restrict__ acc, int B, int k1, int N, int rows) {
+              uint64_t* __restrict__ acc, int B, int k1, int N, int rows,
+              int drop_mask, int drop_body) {
+  constexpr int BM = 16 * MT;
   extern __shared__ __align__(16) uint32_t smem[];
-  const int win_len = N + TMB;
-  const int wpad = pad_idx(win_len) + 8;                 // a multiple of 8
-  int32_t* wlo = reinterpret_cast<int32_t*>(smem);       // signed low halves
-  uint32_t* whi = smem + wpad;                           // adjusted high halves
-  int32_t* dig = reinterpret_cast<int32_t*>(smem + 2 * wpad);
+  const int stride = win_stride(N);
+  uint32_t* win = smem;                     // [limb][copy][stride] words
+  int8_t* a_s = reinterpret_cast<int8_t*>(  // [stage][dl][BM][ASTRIDE]
+      smem + NLIMB * NCOPY * stride);
 
-  const int mtiles = N / TMB;
+  const int ntiles = N / TN;
   const int r = blockIdx.z;
-  const int c = blockIdx.y / mtiles;
-  const int M0 = (blockIdx.y % mtiles) * TMB;
-  const int b0 = blockIdx.x * TBB;
-  const int lane = threadIdx.x & 31;
-  const int wb = threadIdx.x >> 5;
+  const int c = blockIdx.y / ntiles;
+  const int M0 = (blockIdx.y % ntiles) * TN;
+  const int b0 = blockIdx.x * BM;
+  const int jlo = c < k1 - 1 ? drop_mask : drop_body;   // zero key limbs
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const long long dstride = (long long)rows * ND * N;
 
-  // win[y] = dbl[(M0 - N + y) mod 2N], y in [0, N + TMB), split as
-  // v = (int32)lo + (hi + (lo >> 31)) * 2^32 mod 2^64
-  const uint64_t* g = ggsw + ((long long)r * k1 + c) * N;
-  for (int y = threadIdx.x; y < win_len; y += blockDim.x) {
-    int z = (M0 - N + y) & (2 * N - 1);
-    uint64_t v = z < N ? g[z] : 0ull - g[z - N];
-    uint32_t lo = (uint32_t)v;
-    wlo[pad_idx(y)] = (int32_t)lo;
-    whi[pad_idx(y)] = (uint32_t)(v >> 32) + (lo >> 31);
+  // rows past the batch stay zero in both stages; the rest arrive by
+  // cp.async, chunk kc into stage kc % NSTAGE
+  for (int e = tid; e < NSTAGE * ND * BM * QC; e += blockDim.x) {
+    if (b0 + (e / QC) % BM >= B)
+      *reinterpret_cast<int4*>(a_s + (e / QC) * ASTRIDE + (e % QC) * 16) =
+          make_int4(0, 0, 0, 0);
+  }
+  auto stage_chunk = [&](int kc) {
+    int8_t* dst = a_s + (kc % NSTAGE) * ND * BM * ASTRIDE;
+    for (int e = tid; e < ND * BM * QC; e += blockDim.x) {
+      const int pr = e / QC, q = e % QC;    // pr = dl * BM + row
+      const int b = b0 + pr % BM;
+      if (b < B)
+        cp_async16(dst + pr * ASTRIDE + q * 16,
+                   digits + b * dstride + (long long)(r * ND + pr / BM) * N +
+                       kc * KC + q * 16);
+    }
+    cp_async_commit();
+  };
+  stage_chunk(0);
+
+  // the reversed windows: rev[y] = dbl[(M0 + TN - 1 - y) mod 2N]; copy s
+  // word i of limb l = limb-l bytes of rev[4i + s .. 4i + s + 3]
+  const uint64_t* gp = ggsw + ((long long)r * k1 + c) * N;
+  for (int i = tid; i < win_words(N); i += blockDim.x) {
+    uint64_t lim[7];
+#pragma unroll
+    for (int q = 0; q < 7; ++q) {
+      const int z = (M0 + TN - 1 - (4 * i + q)) & (2 * N - 1);
+      lim[q] = limbs8(z < N ? gp[z] : 0ull - gp[z - N]);
+    }
+#pragma unroll
+    for (int s = 0; s < NCOPY; ++s) {
+      uint32_t lo[4], hi[4];
+      transpose4((uint32_t)lim[s], (uint32_t)lim[s + 1], (uint32_t)lim[s + 2],
+                 (uint32_t)lim[s + 3], lo);
+      transpose4((uint32_t)(lim[s] >> 32), (uint32_t)(lim[s + 1] >> 32),
+                 (uint32_t)(lim[s + 2] >> 32), (uint32_t)(lim[s + 3] >> 32),
+                 hi);
+#pragma unroll
+      for (int l = 0; l < 4; ++l) {
+        win[(l * NCOPY + s) * stride + i] = lo[l];
+        win[((l + 4) * NCOPY + s) * stride + i] = hi[l];
+      }
+    }
   }
 
-  uint64_t accl[BT][MT];
-  uint32_t acch[BT][MT];
+  int p[MT][NT][NLIMB][4];                  // class sums, cw = dl + j
 #pragma unroll
-  for (int bb = 0; bb < BT; ++bb)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < MT; ++j) {
-      accl[bb][j] = 0ull;
-      acch[bb][j] = 0u;
-    }
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int cw = 0; cw < NLIMB; ++cw)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) p[mt][nt][cw][q] = 0;
 
-  // coefficient m = M0 + lane*MT + j reads win at y = lane*MT + j - t + N
-  const int ybase = lane * MT + N - (U - 1);
-  const int32_t* drow = digits + (long long)r * N;
-  const long long dstride = (long long)rows * N;
-
-  for (int t0 = 0; t0 < N; t0 += TCH) {
-    __syncthreads();   // window written / previous chunk consumed
-    for (int e = threadIdx.x; e < TBB * TCH; e += blockDim.x) {
-      int bb = e / TCH, tt = e % TCH;
-      int b = b0 + bb;
-      dig[tt * TBB + bb] = b < B ? drow[b * dstride + t0 + tt] : 0;
-    }
-    __syncthreads();
-    for (int tu = 0; tu < TCH; tu += U) {
-      const int t = t0 + tu;
-      int32_t klo[MT + U - 1];
-      uint32_t khi[MT + U - 1];
+  // this lane's B fragments: column m = M0 + warp*NT*8 + nt*8 + g, rows
+  // t = t0 + tig*4 + {0..3} (b0) and +16 (b1): y = t + TN - 1 - (m - M0)
+  const int s = (3 - g) & 3;
+  const uint32_t* wl = win + s * stride;
+  const int nchunks = N / KC;
+  for (int kc = 0; kc < nchunks; ++kc) {
+    if (kc + 1 < nchunks) stage_chunk(kc + 1);
+    else cp_async_commit();                 // keep one group per chunk
+    cp_async_wait1();
+    __syncthreads();   // chunk kc (and, at kc = 0, the windows) visible
+    const int8_t* at = a_s + (kc % NSTAGE) * ND * BM * ASTRIDE;
 #pragma unroll
-      for (int q = 0; q < MT + U - 1; ++q) {
-        klo[q] = wlo[pad_idx(ybase - t + q)];
-        khi[q] = whi[pad_idx(ybase - t + q)];
-      }
+    for (int ks = 0; ks < KC / 32; ++ks) {
+      uint32_t af[ND][MT][4];
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int4 dv =
-            *reinterpret_cast<const int4*>(&dig[(tu + u) * TBB + wb * BT]);
-        const int32_t d[BT] = {dv.x, dv.y, dv.z, dv.w};
+      for (int dl = 0; dl < ND; ++dl)
 #pragma unroll
-        for (int j = 0; j < MT; ++j) {
-          const int32_t kl = klo[j - u + U - 1];
-          const uint32_t kh = khi[j - u + U - 1];
+        for (int mt = 0; mt < MT; ++mt) {
+          const int8_t* ap =
+              at + (dl * BM + mt * 16 + g) * ASTRIDE + ks * 32 + tig * 4;
+          af[dl][mt][0] = *reinterpret_cast<const uint32_t*>(ap);
+          af[dl][mt][1] = *reinterpret_cast<const uint32_t*>(ap + 8 * ASTRIDE);
+          af[dl][mt][2] = *reinterpret_cast<const uint32_t*>(ap + 16);
+          af[dl][mt][3] =
+              *reinterpret_cast<const uint32_t*>(ap + 8 * ASTRIDE + 16);
+        }
+      const int t0 = kc * KC + ks * 32;
 #pragma unroll
-          for (int bb = 0; bb < BT; ++bb) {
-            accl[bb][j] += (uint64_t)((long long)d[bb] * (long long)kl);
-            acch[bb][j] += (uint32_t)d[bb] * kh;
+      for (int nt = 0; nt < NT; ++nt) {
+        const int yb = t0 + tig * 4 + TN - 1 - (warp * NT * 8 + nt * 8 + g);
+        const uint32_t* bp = wl + ((yb - s) >> 2);
+#pragma unroll
+        for (int j = 0; j < NLIMB; ++j) {
+          if (j < jlo) continue;            // the same in the whole block
+          const uint32_t bf0 = bp[j * NCOPY * stride];
+          const uint32_t bf1 = bp[j * NCOPY * stride + 4];
+#pragma unroll
+          for (int dl = 0; dl < ND; ++dl) {
+            if (dl + j >= NLIMB) continue;  // weight 2^64: vanishes
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt)
+              mma_s8(p[mt][nt][dl + j], af[dl][mt], bf0, bf1);
           }
         }
       }
     }
+    __syncthreads();   // stage kc % NSTAGE consumed before it is refilled
   }
 
+  // d fragment q: row g (+8 for q >= 2), column 2*tig + (q & 1)
 #pragma unroll
-  for (int bb = 0; bb < BT; ++bb) {
-    int b = b0 + wb * BT + bb;
-    if (b >= B) continue;
-    unsigned long long* out = reinterpret_cast<unsigned long long*>(
-        acc + ((long long)b * k1 + c) * N + M0 + lane * MT);
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < MT; ++j)
-      atomicAdd(out + j, (unsigned long long)(
-                             accl[bb][j] + ((uint64_t)acch[bb][j] << 32)));
-  }
+    for (int q = 0; q < 4; ++q) {
+      const int b = b0 + mt * 16 + g + (q >= 2 ? 8 : 0);
+      if (b >= B) continue;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        uint64_t v = 0ull;
+#pragma unroll
+        for (int cw = 0; cw < NLIMB; ++cw)
+          v += (uint64_t)(int64_t)p[mt][nt][cw][q] << (8 * cw);
+        const int m = M0 + warp * NT * 8 + nt * 8 + 2 * tig + (q & 1);
+        atomicAdd(reinterpret_cast<unsigned long long*>(acc) +
+                      ((long long)b * k1 + c) * N + m,
+                  (unsigned long long)v);
+      }
+    }
 }
 
-// Shared memory of one ext_product64 block for polynomial size N.
-size_t ext_product64_smem(int N) {
-  return (size_t)(2 * (pad_idx(N + TMB) + 8)) * sizeof(uint32_t) +
-         (size_t)TCH * TBB * sizeof(int32_t);
+size_t ext_product64_smem(int N, int nd, int mt) {
+  return (size_t)NLIMB * NCOPY * win_stride(N) * sizeof(uint32_t) +
+         (size_t)NSTAGE * nd * 16 * mt * ASTRIDE;
+}
+
+// One ext_product64<ND, MT> launch on `stream` (after its shared-memory
+// opt-in, raised once per instance to the largest size asked for).
+template <int ND, int MT>
+int launch_ext_product64_t(const int8_t* digits, const uint64_t* ggsw,
+                           uint64_t* acc, int B, int k1, int N, int rows,
+                           int drop_mask, int drop_body, cudaStream_t stream) {
+  static size_t opted = 0;
+  const size_t smem = ext_product64_smem(N, ND, MT);
+  if (smem > opted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ext_product64<ND, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    opted = smem;
+  }
+  const dim3 grid((B + 16 * MT - 1) / (16 * MT), k1 * (N / TN), rows);
+  ext_product64<ND, MT><<<grid, kWarps * 32, smem, stream>>>(
+      digits, ggsw, acc, B, k1, N, rows, drop_mask, drop_body);
+  return (int)cudaGetLastError();
+}
+
+// Batch rows per block: 16 (MT = 1) up to B = 32, else 32 (MT = 2).
+int launch_ext_product64(const int8_t* digits, const uint64_t* ggsw,
+                         uint64_t* acc, int B, int k1, int N, int rows,
+                         int nd, int drop_mask, int drop_body,
+                         cudaStream_t stream) {
+  const bool narrow = B <= 32;
+#define FHE_EXT64(ND)                                                        \
+  return narrow ? launch_ext_product64_t<ND, 1>(digits, ggsw, acc, B, k1, N, \
+                                                rows, drop_mask, drop_body,  \
+                                                stream)                      \
+                : launch_ext_product64_t<ND, 2>(digits, ggsw, acc, B, k1, N, \
+                                                rows, drop_mask, drop_body,  \
+                                                stream)
+  switch (nd) {
+    case 1: FHE_EXT64(1);
+    case 2: FHE_EXT64(2);
+    case 3: FHE_EXT64(3);
+  }
+#undef FHE_EXT64
+  return (int)cudaErrorInvalidValue;
 }
 
 // The whole blind rotation of B instances, enqueued on `stream`.
 int rotate64(const int32_t* cts_ms, const uint64_t* luts,
              const int32_t* lut_idx, const uint64_t* bsk, uint64_t* acc,
-             int32_t* digits, int B, int n, int k1, int N, int level,
-             int base_log, cudaStream_t stream) {
+             int8_t* digits, int B, int n, int k1, int N, int level,
+             int base_log, int nd, int drop_mask, int drop_body,
+             cudaStream_t stream) {
   const int rows = k1 * level;
   const long long elems = (long long)B * k1 * N;
   const unsigned grid1 = (unsigned)((elems + kThreads1 - 1) / kThreads1);
-  const dim3 grid2((B + TBB - 1) / TBB, k1 * (N / TMB), rows);
-  const size_t smem = ext_product64_smem(N);
 
-  cudaError_t err = cudaFuncSetAttribute(
-      ext_product64, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   acc_init64<<<grid1, kThreads1, 0, stream>>>(cts_ms, luts, lut_idx, acc, B,
                                               n, k1, N);
-  err = cudaGetLastError();
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long step_stride = (long long)rows * k1 * N;
   for (int i = 0; i < n; ++i) {
     stage1_64<<<grid1, kThreads1, 0, stream>>>(cts_ms, acc, digits, B, n, k1,
-                                               N, level, base_log, i);
-    ext_product64<<<grid2, kWarps * 32, smem, stream>>>(
-        digits, bsk + i * step_stride, acc, B, k1, N, rows);
+                                               N, level, base_log, nd, i);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
+    int e = launch_ext_product64(digits, bsk + i * step_stride, acc, B, k1, N,
+                                 rows, nd, drop_mask, drop_body, stream);
+    if (e != 0) return e;
   }
   return 0;
 }
@@ -250,33 +435,27 @@ int rotate64(const int32_t* cts_ms, const uint64_t* luts,
 
 extern "C" {
 
-// The whole 64-bit blind rotation (the `pallas64` kernel's counterpart),
-// enqueued on `stream`; returns a cudaError_t.
+// The 64-bit blind rotation over batch blocks of tb instances, one after
+// another, enqueued on `stream`; returns a cudaError_t.  tb = B is the
+// `pallas64` kernel's counterpart, tb < B the `pallas64-bg` one's.
 //   cts_ms  [B, n+1] int32 in [0, 2N)      luts [L, N] uint64  lut_idx [B]
 //   bsk     [n, k1*level, k1, N] uint64    acc  [B, k1, N] uint64 (output)
-//   digits  [B, k1*level, N] int32 scratch
-// Needs N a power of two, a multiple of 256, and 64 - base_log*level >= 33.
+//   digits  [tb, k1*level*nd, N] int8 scratch (16-byte aligned), nd int8
+//           limbs per digit
+// tb divides B.  The key is rounded to multiples of 256^drop_mask (mask
+// components) and 256^drop_body (body): the key limbs below are skipped.
+// Needs N a power of two in [256, 4096], base_log * level <= 31, and
+// 1 <= nd <= 3 limbs that hold every digit (the wrapper checks).
 int fhe_blind_rotate64(const int32_t* cts_ms, const uint64_t* luts,
                        const int32_t* lut_idx, const uint64_t* bsk,
-                       uint64_t* acc, int32_t* digits, int B, int n, int k1,
-                       int N, int level, int base_log, void* stream_ptr) {
-  return rotate64(cts_ms, luts, lut_idx, bsk, acc, digits, B, n, k1, N, level,
-                  base_log, static_cast<cudaStream_t>(stream_ptr));
-}
-
-// The same rotation over batch blocks of tb instances, one after another
-// (the `pallas64-bg` kernel's counterpart); tb divides B, and digits is
-// [tb, k1*level, N].  The caller passes the key rounded by its limb drop.
-int fhe_blind_rotate64_bg(const int32_t* cts_ms, const uint64_t* luts,
-                          const int32_t* lut_idx, const uint64_t* bsk,
-                          uint64_t* acc, int32_t* digits, int B, int tb, int n,
-                          int k1, int N, int level, int base_log,
-                          void* stream_ptr) {
+                       uint64_t* acc, int8_t* digits, int B, int tb, int n,
+                       int k1, int N, int level, int base_log, int nd,
+                       int drop_mask, int drop_body, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   for (int b0 = 0; b0 < B; b0 += tb) {
     int err = rotate64(cts_ms + (long long)b0 * (n + 1), luts, lut_idx + b0,
                        bsk, acc + (long long)b0 * k1 * N, digits, tb, n, k1,
-                       N, level, base_log, stream);
+                       N, level, base_log, nd, drop_mask, drop_body, stream);
     if (err != 0) return err;
   }
   return 0;

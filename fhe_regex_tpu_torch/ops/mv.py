@@ -61,8 +61,7 @@ def _rotate_acc(dev_key: DeviceServerKey, vlut: torch.Tensor,
     params = dev_key.params
     idx = torch.zeros(cts.shape[0], dtype=I32, device=cts.device)
     switch = mod_switch if params.torus_bits == 32 else pbs64.mod_switch64
-    return rotation_fn(dev_key.backend)(params, dev_key.bsk, vlut, idx,
-                                        switch(params, cts))
+    return rotation_fn(dev_key)(vlut, idx, switch(params, cts))
 
 
 def _key_switch(dev_key: DeviceServerKey, big: torch.Tensor) -> torch.Tensor:

@@ -301,10 +301,11 @@ def prepare_server_key(params: Params, server_key,
         tuple(drop))
 
 
-def rotation_fn(backend: str):
-    """The blind rotation of a backend, (params, bsk, luts, lut_idx,
-    cts_ms) -> accumulators: the plain one, or a kernel wrapper of
-    ``ops/pbs_cuda.py``."""
+def rotation_fn(dev_key: DeviceServerKey):
+    """The blind rotation of the key's backend on its bootstrap key,
+    (luts, lut_idx, cts_ms) -> accumulators: the plain one, or a kernel
+    wrapper of ``ops/pbs_cuda.py``.  ``cuda64-bg`` gets the key's
+    ``drop64``, the drop its key was rounded by."""
     from fhe_regex_tpu_torch.ops import pbs_cuda
     rotations = {
         "torch": blind_rotate,
@@ -315,27 +316,29 @@ def rotation_fn(backend: str):
         "cuda64": pbs_cuda.blind_rotate_fused64,
         "cuda64-bg": pbs_cuda.blind_rotate_fused64_bg,
     }
+    backend, params, bsk = dev_key.backend, dev_key.params, dev_key.bsk
     if backend not in rotations:
         raise ValueError(backend)
-    return rotations[backend]
+    rotate = rotations[backend]
+    kw = {"drop": tuple(dev_key.drop64)} if backend == "cuda64-bg" else {}
+    return lambda luts, lut_idx, cts_ms: rotate(params, bsk, luts, lut_idx,
+                                                cts_ms, **kw)
 
 
 def make_pbs_core(dev_key: DeviceServerKey):
     """Callable (luts, lut_idx, cts) -> cts_out for the prepared key: mod
     switch, the backend's blind rotation, sample extract, keyswitch."""
     params = dev_key.params
-    rotate = rotation_fn(dev_key.backend)
+    rotate = rotation_fn(dev_key)
     if params.torus_bits == 32:
         def core(luts, lut_idx, cts):
-            acc = rotate(params, dev_key.bsk, luts, lut_idx,
-                         mod_switch(params, cts))
+            acc = rotate(luts, lut_idx, mod_switch(params, cts))
             return key_switch(params, dev_key.ksk,
                               sample_extract(params, acc))
         return core
 
     def core64(luts, lut_idx, cts):
-        acc = rotate(params, dev_key.bsk, luts, lut_idx,
-                     pbs64.mod_switch64(params, cts))
+        acc = rotate(luts, lut_idx, pbs64.mod_switch64(params, cts))
         return pbs64.key_switch64(params, dev_key.ksk,
                                   pbs64.sample_extract64(params, acc))
     return core64

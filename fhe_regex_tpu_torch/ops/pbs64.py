@@ -113,6 +113,12 @@ def decompose64(v: torch.Tensor, base_log: int, level: int,
     return torch.stack(digits[::-1])
 
 
+def n_digit_limbs(base_log: int) -> int:
+    """int8 limbs of a balanced base-2^base_log digit, as the JAX package
+    splits it for its tensor-core kernels (3 at base_log = 23, 1 at 7)."""
+    return (base_log + 7) // 8
+
+
 def negacyclic_rotate_batch64(polys: torch.Tensor,
                               r: torch.Tensor) -> torch.Tensor:
     """X^{r_b} * polys[b]: polys [B, C, N] int64, r [B] in [0, 2N).

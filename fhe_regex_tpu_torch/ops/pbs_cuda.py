@@ -44,7 +44,7 @@ import torch
 
 from fhe_regex_tpu_torch.ops import pbs as plain
 from fhe_regex_tpu_torch.ops.pbs import blind_rotate
-from fhe_regex_tpu_torch.ops.pbs64 import blind_rotate64
+from fhe_regex_tpu_torch.ops.pbs64 import blind_rotate64, n_digit_limbs
 from fhe_regex_tpu_torch.params import Params
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -119,8 +119,7 @@ def _load():
             "fhe_blind_rotate_bg": (6, 7),
             "fhe_stage1_digits": (3, 5),
             "fhe_external_product_step": (4, 4),
-            "fhe_blind_rotate64": (6, 6),
-            "fhe_blind_rotate64_bg": (6, 7),
+            "fhe_blind_rotate64": (6, 10),
         }
         for name, (ptrs, ints) in signatures.items():
             fn = getattr(lib, name)
@@ -188,22 +187,27 @@ def _check32(params: Params, bsk, luts, lut_idx, cts_ms) -> None:
 
 
 def _launch(entry: str, params: Params, bsk, luts, lut_idx, cts_ms,
-            tb: "int | None") -> torch.Tensor:
-    """One whole-rotation entry point (``tb`` given: over batch blocks) at
-    either torus width: int32 accumulators and int8 digits at 32 bits,
-    int64 and int32 at 64."""
+            tb: "int | None", drop: tuple = (0, 0)) -> torch.Tensor:
+    """One whole-rotation entry point.  32 bits: int32 accumulators and
+    int8 digits, over batch blocks when ``tb`` is given.  64 bits: int64
+    accumulators and ``n_digit_limbs`` int8 planes per digit row, over
+    batch blocks of ``tb`` (None: one block), with the key-limb ``drop``."""
     k1 = params.glwe_dimension + 1
     N, n, l = params.polynomial_size, params.lwe_dimension, params.pbs_level
     B, dev = cts_ms.shape[0], cts_ms.device
     wide = params.torus_bits == 64
     acc = torch.empty((B, k1, N), device=dev,
                       dtype=torch.int64 if wide else torch.int32)
-    digits = torch.empty((tb or B, k1 * l, N), device=dev,
-                         dtype=torch.int32 if wide else torch.int8)
+    nd, tail = 1, ()
+    if wide:
+        tb, nd = tb or B, n_digit_limbs(params.pbs_base_log)
+        tail = (nd, *drop)
+    digits = torch.empty((tb or B, k1 * l * nd, N), device=dev,
+                         dtype=torch.int8)
     blocks = () if tb is None else (tb,)
     _call(entry, dev, cts_ms.data_ptr(), luts.data_ptr(), lut_idx.data_ptr(),
           bsk.data_ptr(), acc.data_ptr(), digits.data_ptr(), B, *blocks, n,
-          k1, N, l, params.pbs_base_log)
+          k1, N, l, params.pbs_base_log, *tail)
     return acc
 
 
@@ -361,16 +365,29 @@ def blind_rotate_steps(params: Params, bsk: torch.Tensor, luts: torch.Tensor,
 # ---------------- 64-bit torus ----------------
 
 
-def _check64(params: Params, bsk, luts, lut_idx, cts_ms) -> None:
+def _check64(params: Params, bsk, luts, lut_idx, cts_ms,
+             drop=(0, 0)) -> None:
+    """What the 64-bit kernels take: N a power of two in [256, 4096] (the
+    key windows of a block in shared memory; int32 limb-class sums exact
+    for nd * N < 2^17), digits of 1 to 3 balanced int8 limbs (the
+    ``ext_product64`` templates), a drop of 0 to 7 key limbs."""
     k1 = params.glwe_dimension + 1
     N, n, l = params.polynomial_size, params.lwe_dimension, params.pbs_level
+    bl = params.pbs_base_log
     if params.torus_bits != 64:
         raise ValueError("the 64-bit blind rotation needs a 64-bit set")
-    if N % 256 or N & (N - 1):
-        raise ValueError(f"N={N}: the kernel needs a power of two >= 256")
-    if 64 - params.pbs_base_log * l < 33:
-        raise ValueError("the kernel's int32 digits need base_log * level "
+    if N & (N - 1) or not 256 <= N <= 4096:
+        raise ValueError(f"N={N}: the kernel needs a power of two in "
+                         f"[256, 4096]")
+    if bl * l > 31:
+        raise ValueError("the kernel's rounding needs base_log * level "
                          "<= 31")
+    nd = n_digit_limbs(bl)
+    if nd > 3 or (1 << (bl - 1)) - 1 > 0x7F7F7F >> (8 * (3 - nd)):
+        raise ValueError(f"base_log={bl}: the kernel splits a digit into "
+                         f"1 to 3 balanced int8 limbs that must hold it")
+    if len(drop) != 2 or not all(0 <= m < 8 for m in drop):
+        raise ValueError(f"key-limb drop {drop}: need two counts in [0, 8)")
     B = cts_ms.shape[0]
     if B < 1:
         raise ValueError("empty batch")
@@ -406,24 +423,28 @@ blind_rotate_fused64.launches = 0
 
 def blind_rotate_fused64_bg(params: Params, bsk_rounded: torch.Tensor,
                             luts: torch.Tensor, lut_idx: torch.Tensor,
-                            cts_ms: torch.Tensor,
-                            tb: "int | None" = None) -> torch.Tensor:
+                            cts_ms: torch.Tensor, tb: "int | None" = None,
+                            drop: tuple = (0, 0)) -> torch.Tensor:
     """``blind_rotate_fused64`` over batch blocks of ``tb`` instances, each
     block running its whole rotation, on a key rounded by
     ``pbs64.round_bsk64`` (the JAX ``pallas64-bg`` backend).
 
-    ``tb=None`` takes the largest 8-aligned divisor of B up to 512; a B
-    with none, or an explicit ``tb`` that does not cover B exactly, raises
-    ValueError.  CPU tensors take the plain ``blind_rotate64`` on the key
-    given; CUDA tensors launch the kernel (each call adds one to
-    ``blind_rotate_fused64_bg.launches``).
+    ``drop`` is the (mask, body) limb drop the key was rounded by
+    (``DeviceServerKey.drop64``): the kernel skips the key limbs below it,
+    which are zero only on a key so rounded.  ``tb=None`` takes the largest
+    8-aligned divisor of B up to 512; a B with none, or an explicit ``tb``
+    that does not cover B exactly, raises ValueError.  CPU tensors take the
+    plain ``blind_rotate64`` on the key given (exact on the rounded key,
+    so it needs no drop); CUDA tensors launch the kernel (each call adds
+    one to ``blind_rotate_fused64_bg.launches``).
     """
     tb = _resolve_tb(cts_ms.shape[0], tb, BG64_CAP, "blind_rotate_fused64")
     if not _on_cuda("blind rotation", cts_ms):
         return blind_rotate64(params, bsk_rounded, luts, lut_idx, cts_ms)
-    _check64(params, bsk_rounded, luts, lut_idx, cts_ms)
-    acc = _launch("fhe_blind_rotate64_bg", params, bsk_rounded, luts,
-                  lut_idx, cts_ms, tb)
+    drop = tuple(int(m) for m in drop)
+    _check64(params, bsk_rounded, luts, lut_idx, cts_ms, drop)
+    acc = _launch("fhe_blind_rotate64", params, bsk_rounded, luts, lut_idx,
+                  cts_ms, tb, drop)
     blind_rotate_fused64_bg.launches += 1
     return acc
 
