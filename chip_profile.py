@@ -20,14 +20,25 @@ once under ``torch.profiler``:
 For each it prints the wall time of the profiled call, the device's busy
 time (the union of its kernel and copy intervals), the idle share
 1 - busy / wall, and the device time by kernel name with its share of the
-busy time.  The profiler's own
+busy time, its launches and its mean time per launch (the digit passes
+``stage1`` / ``stage1_64`` on a line of their own).  The profiler's own
 cost lengthens the wall time a little, so the idle share is an upper
-bound.  Then the blind rotation's time by batch width (B = 8 ... 512,
-CUDA events, 2 samples after a warm call) on the default backend of each
-torus width (``cuda-fused``, ``cuda64-bg``), on the production keys and
-random mod-switched inputs, and the registers and spills of each kernel
-of ``csrc/blind_rotate64.cu`` as ``nvcc -Xptxas -v`` reports them (one
-more compile of that source).  The last line is a JSON object with these
+bound.  A kernel launched as a programmatic dependent launch (each step
+of a rotation since the digit pass was redesigned) may start before the
+kernel ahead of it ends and wait there: its interval then holds that
+wait, and the intervals of one step overlap.
+
+Then the blind rotation's time by batch width (B = 8 ... 512, CUDA
+events, 2 samples after a warm call) on the default backend of each torus
+width (``cuda-fused``, ``cuda64-bg``), on the production keys and random
+mod-switched inputs; the digit pass at B = 8, 256 and 512: the 32-bit
+``stage1_digits`` alone, per launch from a CUDA graph of 20 launches
+(``chip_smoke._graph_ms``), the mean interval per launch of each kernel
+inside one rotation of each width (``torch.profiler``), and that
+rotation's step timeline (``step_timeline``); and the
+registers and spills of each kernel of ``csrc/blind_rotate.cu`` and
+``csrc/blind_rotate64.cu`` as ``nvcc -Xptxas -v`` reports them (one more
+compile of each source).  The last line is a JSON object with these
 numbers.
 """
 
@@ -60,7 +71,12 @@ def busy_us(events) -> float:
     return total
 
 
-def profiled(label: str, fn) -> dict:
+DIGIT_KERNELS = re.compile(r"\b(stage1|stage1_64)\(")
+
+
+def _traced(label: str, fn):
+    """(wall seconds, device events) of one warm call of fn under
+    torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -76,19 +92,43 @@ def profiled(label: str, fn) -> dict:
     if not dev:
         raise SystemExit(f"chip_profile: {label}: the profiler recorded no "
                          f"device events")
-    busy = busy_us(dev) / 1e6
-    by_name = defaultdict(lambda: [0.0, 0])
+    return wall, dev
+
+
+def by_kernel(dev) -> dict:
+    """{kernel name: [device ms, launches]} of the events."""
+    out = defaultdict(lambda: [0.0, 0])
     for e in dev:
-        by_name[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
-        by_name[e.name][1] += 1
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+        out[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
+        out[e.name][1] += 1
+    return out
+
+
+def digit_means(names: dict) -> dict:
+    """{stage1 | stage1_64: mean us per launch} of a by_kernel table."""
+    out = {}
+    for name, (ms, count) in names.items():
+        hit = DIGIT_KERNELS.search(name)
+        if hit:
+            out[hit[1]] = ms * 1e3 / count
+    return out
+
+
+def profiled(label: str, fn) -> dict:
+    wall, dev = _traced(label, fn)
+    busy = busy_us(dev) / 1e6
+    names = by_kernel(dev)
+    top = sorted(names.items(), key=lambda kv: -kv[1][0])[:6]
     print(f"{label}: wall {wall:.3f} s, device busy {busy:.3f} s, idle "
           f"share {1 - busy / wall:.3f}", flush=True)
     for name, (ms, count) in top:
         print(f"  {name[:60]:60s} {ms:10.1f} ms {ms / 1e3 / busy:6.1%} "
-              f"{count:6d} launches", flush=True)
+              f"{count:6d} launches {ms * 1e3 / count:9.2f} us each",
+              flush=True)
+    digits = digit_means(names)
+    print(f"  digit pass, mean device us per launch: {digits}", flush=True)
     return {"label": label, "wall_s": wall, "busy_s": busy,
-            "idle_share": 1 - busy / wall,
+            "idle_share": 1 - busy / wall, "digit_us": digits,
             "top": [[n, ms, c] for n, (ms, c) in top]}
 
 
@@ -97,20 +137,22 @@ WIDTHS = (8, 16, 32, 64, 128, 256, 512)
 
 def widths(params, sk) -> dict:
     """ms per blind rotation on the width's default CUDA backend, by B."""
+    import chip_smoke as smoke
     from fhe_regex_tpu_torch.ops.pbs import prepare_server_key, rotation_fn
 
-    dk = prepare_server_key(params, sk, "cuda")
+    dev = smoke.DEVICE
+    dk = prepare_server_key(params, sk, dev)
     rotate = rotation_fn(dk)
     N, n = params.polynomial_size, params.lwe_dimension
     gen = torch.Generator().manual_seed(5)
     luts = torch.randint(-2**31, 2**31, (1, N), generator=gen,
                          dtype=torch.int64)
-    luts = luts.to("cuda", dk.bsk.dtype)
+    luts = luts.to(dev, dk.bsk.dtype)
     out = {}
     for B in WIDTHS:
         ms = torch.randint(0, 2 * N, (B, n + 1), generator=gen,
-                           dtype=torch.int32).to("cuda")
-        idx = torch.zeros(B, dtype=torch.int32, device="cuda")
+                           dtype=torch.int32).to(dev)
+        idx = torch.zeros(B, dtype=torch.int32, device=dev)
         rotate(luts, idx, ms)                          # warm
         times = []
         for _ in range(2):
@@ -128,34 +170,115 @@ def widths(params, sk) -> dict:
     return out
 
 
+DIGIT_WIDTHS = (8, 256, 512)
+
+
+def short_name(name: str) -> str:
+    """``ext_product<4>`` of ``void (anonymous namespace)::ext_product<4>(
+    signed char const*, ...)``."""
+    hit = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
+    return hit[1] if hit else name[:40]
+
+
+def step_timeline(events) -> dict:
+    """Means over the middle steps of one rotation's trace (us): the step
+    (from one external product's end to the next), the intervals of the
+    digit pass and the external product, and the gaps between them (a
+    kernel that starts before the one ahead of it ends gives a negative
+    gap)."""
+    ev = sorted(events, key=lambda e: e.time_range.start)
+    dig = [e.time_range for e in ev if DIGIT_KERNELS.search(e.name)]
+    ext = [e.time_range for e in ev if "ext_product" in e.name]
+    lo, hi = len(dig) // 8, len(dig) * 7 // 8
+    span = range(lo, hi)
+
+    def mean(xs):
+        xs = list(xs)
+        return sum(xs) / len(xs)
+    return {"step": (ext[hi].end - ext[lo].end) / (hi - lo),
+            "digit": mean(dig[i].end - dig[i].start for i in span),
+            "ext": mean(ext[i].end - ext[i].start for i in span),
+            "ext_after_digit": mean(ext[i].start - dig[i].end for i in span),
+            "digit_after_ext": mean(dig[i + 1].start - ext[i].end
+                                    for i in span)}
+
+
+def digit_pass(params, sk) -> dict:
+    """The digit pass at B = 8, 256, 512 on the width's default CUDA
+    backend: the mean device interval per launch of each kernel inside one
+    rotation (torch.profiler, random mod-switched inputs), and at 32 bits
+    ``stage1_digits`` alone, per launch from a CUDA graph; beside the digit
+    pass's byte bound (``chip_smoke.digit_bytes``)."""
+    import chip_smoke as smoke
+    from fhe_regex_tpu_torch.ops import pbs_cuda
+    from fhe_regex_tpu_torch.ops.pbs import prepare_server_key, rotation_fn
+
+    dev = smoke.DEVICE
+    dk = prepare_server_key(params, sk, dev)
+    rotate = rotation_fn(dk)
+    N, n = params.polynomial_size, params.lwe_dimension
+    gen = torch.Generator().manual_seed(6)
+    luts = torch.randint(-2**31, 2**31, (1, N), generator=gen,
+                         dtype=torch.int64).to(dev, dk.bsk.dtype)
+    out = {}
+    for B in DIGIT_WIDTHS:
+        ms = torch.randint(0, 2 * N, (B, n + 1), generator=gen,
+                           dtype=torch.int32).to(dev)
+        idx = torch.zeros(B, dtype=torch.int32, device=dev)
+        _, events = _traced(f"rotation B={B}",
+                            lambda: rotate(luts, idx, ms))
+        per = {short_name(k): v[0] * 1e3 / v[1]
+               for k, v in by_kernel(events).items()}
+        row = {"in_rotation_us": per, "steps_us": step_timeline(events),
+               "bound_ms": smoke._bound(0, smoke.digit_bytes(params, B))[0]}
+        if params.torus_bits == 32:
+            acc, a = smoke._digit_inputs(params, B, 800 + B)
+            row["alone_ms"] = smoke._graph_ms(
+                lambda: pbs_cuda.stage1_digits(params, acc, a))
+        print(f"digit pass {params.name} on {dk.backend} B={B}: in the "
+              f"rotation, mean us per launch "
+              + ", ".join(f"{k} {v:.2f}" for k, v in per.items())
+              + "; steps (us) " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in row["steps_us"].items())
+              + (f"; stage1_digits alone (CUDA graph) "
+                 f"{smoke._fmt(row['alone_ms'])} ms"
+                 if "alone_ms" in row else "")
+              + f"; bound {row['bound_ms']:.5f} ms", flush=True)
+        out[B] = row
+    return out
+
+
 def ptxas_report() -> list:
-    """[{kernel, registers, spill_stores, spill_loads}] of the 64-bit
-    source, from ``nvcc -Xptxas -v``."""
+    """[{kernel, registers, spill_stores, spill_loads}] of both sources,
+    from ``nvcc -Xptxas -v``."""
     from fhe_regex_tpu_torch.ops import pbs_cuda
 
     pbs_cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=pbs_cuda.BUILD_DIR) as tmp:
-        res = subprocess.run(
-            [pbs_cuda._nvcc(), *pbs_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-             "-o", str(Path(tmp) / "k.o"),
-             str(pbs_cuda.CSRC / "blind_rotate64.cu")],
-            capture_output=True, text=True, check=True)
     out = []
-    for line in (res.stdout + res.stderr).splitlines():
-        entry = re.search(r"Compiling entry function '.*?\d+"
-                          r"(ext_product64|stage1_64|acc_init64)"
-                          r"(?:ILi(\d)ELi(\d)E)?", line)
-        if entry:
-            name, nd, mt = entry.groups()
-            out.append({"kernel": name + (f"<{nd}, {mt}>" if nd else "")})
-        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-        if spill and out:
-            out[-1].update(spill_stores=int(spill[1]),
-                           spill_loads=int(spill[2]))
-        regs = re.search(r"Used (\d+) registers", line)
-        if regs and out:
-            out[-1]["registers"] = int(regs[1])
+    for source in pbs_cuda.SOURCES:
+        with tempfile.TemporaryDirectory(dir=pbs_cuda.BUILD_DIR) as tmp:
+            res = subprocess.run(
+                [pbs_cuda._nvcc(), *pbs_cuda.NVCC_FLAGS, "-Xptxas", "-v",
+                 "-c", "-o", str(Path(tmp) / "k.o"),
+                 str(pbs_cuda.CSRC / source)],
+                capture_output=True, text=True, check=True)
+        for line in (res.stdout + res.stderr).splitlines():
+            entry = re.search(r"Compiling entry function '.*?\d+"
+                              r"(ext_product64|ext_product|stage1_64|stage1"
+                              r"|acc_init64|acc_init)(I(?:Li\d+E)+E)?", line)
+            if entry:
+                args = re.findall(r"Li(\d+)E", entry[2] or "")
+                out.append({"kernel": entry[1] + (f"<{', '.join(args)}>"
+                                                  if args else ""),
+                            "source": source})
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+            if spill and out:
+                out[-1].update(spill_stores=int(spill[1]),
+                               spill_loads=int(spill[2]))
+            regs = re.search(r"Used (\d+) registers", line)
+            if regs and out:
+                out[-1]["registers"] = int(regs[1])
     for k in out:
         print(f"ptxas {k}", flush=True)
     return out
@@ -209,10 +332,13 @@ def main() -> int:
 
     runs.append(profiled(f"has_match_many C={len(cts64)} on cuda64-bg",
                          serve64))
-    table = {name: widths(get_params(name), smoke._keys(get_params(name))[1])
-             for name in (smoke.FULL, smoke.FULL64)}
+    table, digits = {}, {}
+    for name in (smoke.FULL, smoke.FULL64):
+        sk_w = smoke._keys(get_params(name))[1]
+        table[name] = widths(get_params(name), sk_w)
+        digits[name] = digit_pass(get_params(name), sk_w)
     print(json.dumps({"device": smi, "runs": runs, "widths": table,
-                      "ptxas64": ptxas_report()}))
+                      "digit_pass": digits, "ptxas": ptxas_report()}))
     return 0
 
 

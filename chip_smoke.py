@@ -10,7 +10,10 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
 2. 32-bit kernel vs plain: the CUDA blind rotation against the plain
    PyTorch version on the card, bit for bit (tolerance zero: both are exact
    integer arithmetic mod 2^32), at TEST_PARAMS_NOISY (B = 8, 37) and at
-   TPU_MESSAGE_2_CARRY_2 (B = 8, 256), with both times;
+   TPU_MESSAGE_2_CARRY_2 (B = 8, 256), with both times; then three B = 8
+   rotations enqueued back to back, each equal to plain (each step's two
+   kernels are chained by programmatic dependent launch: a missing wait
+   would race);
 3. 32-bit main path: keys for TPU_MESSAGE_2_CARRY_2 (cached in ``.cache/``),
    then six requests with real ``encrypt_str`` -> ``has_match(fold="tree",
    device="cuda")`` -> ``decrypt``, each against its expected bit, with the
@@ -32,15 +35,21 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    against the CPU;
 7. 64-bit throughput: one decrypt-checked PBS batch at B = 256 on
    ``cuda64-bg``;
-8. the per-step kernels (backend ``cuda``) vs plain at TPU_MESSAGE_2_CARRY_2,
-   B = 8, 37 and 256, tolerance zero: one ``stage1_digits`` and one
-   ``external_product_step`` launch (the int8 tensor-core external product
-   that #3 and #4 run too), each timed with CUDA events at B = 8 and 256
-   beside its plain version and, for the external product, beside one
-   float64 ``torch.matmul`` with the Toeplitz matrix prebuilt (the library
-   call that computes the same product); then a whole
-   ``blind_rotate_steps`` rotation at B = 8 and 256, bit-equal to
-   ``blind_rotate_fused``;
+8. the per-launch kernels vs plain, tolerance zero: the digit pass
+   ``stage1_digits`` (#2, the ``stage1`` that #3 and #4 run each step) at
+   TEST_PARAMS_NOISY (N = 256) and TPU_MESSAGE_2_CARRY_2, and
+   ``stage1_digits64`` (the ``stage1_64`` of #5 and #6) at the N = 256
+   base-2^23 set and TPU64_MESSAGE_2_CARRY_2, each at B = 8, 37 and 256
+   with the edge rotations and torus edge words planted, timed at the
+   production set at B = 8, 256 and 512 beside its byte bound; one
+   ``external_product_step`` launch (#1, the int8 tensor-core external
+   product that #3 and #4 run too) at B = 8, 37 and 256, timed at 8 and
+   256 beside one float64 ``torch.matmul`` with the Toeplitz matrix
+   prebuilt (the library call that computes the same product); then a
+   whole ``blind_rotate_steps`` rotation at B = 8 and 256, bit-equal to
+   ``blind_rotate_fused``.  These per-launch times are device times: a
+   CUDA graph of 20 launches (3 for the plain versions and the matmul),
+   replayed between two CUDA events (``_graph_ms``);
 9. the batch-grid kernel (``cuda-bg``): B = 256 in one block and in two
    (tb = 256, 128), equal to ``cuda-fused``; B = 1024 at the default tb,
    bit-equal to the plain rotation, timed beside ``cuda-fused``;
@@ -66,7 +75,8 @@ path's kernel must show launches.  Any failure raises.  The line before
 the last is a JSON object describing each kernel: its launches on its main
 path, its largest difference from the plain version, its time and the
 plain version's (and the library call's, where one computes the same
-function) at one shape of the run, and the least time the card could take
+function) at one shape of the run (B = 256; #1 and #2 per launch, from
+``_graph_ms``), and the least time the card could take
 for that work (``bound_ms``: the int8 tensor-core operations of the limb
 formulation at 1,979 TOP/s, or the bytes at 3.35 TB/s, whichever is
 larger; the H100 SXM data sheet's peaks).  The last line is
@@ -204,19 +214,37 @@ def kernel_vs_plain(label, params, kernel, plain, bsk, x, timed):
     return err, k_s, p_s
 
 
-def _event_ms(fn, samples: int = 3) -> list:
-    """Device times (ms) of `samples` calls of fn after one warm call,
-    each between two CUDA events."""
-    fn()
+def _graph_ms(fn, reps: int = 20, samples: int = 3) -> list:
+    """Device ms per call of fn, `samples` times: `reps` calls captured in
+    one CUDA graph (the wrappers launch on the current stream, which is
+    the capture stream), replayed between two CUDA events, the interval
+    over reps.  One Python call between two events would time mostly the
+    host's launch path (tens of microseconds), longer than these kernels.
+    Warmed first on a side stream; the inputs stay in L2 from one call to
+    the next, as the accumulators do between the steps of a rotation."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     times = []
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        graph.replay()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    torch.cuda.synchronize()
     return times
 
 
@@ -368,32 +396,88 @@ def same_on_cpu(port, params, ck, sk):
         raise AssertionError(f"{params.name}: card and CPU results differ")
 
 
+def _digit_inputs(params, B: int, seed: int):
+    """A digit pass's inputs on the card: acc [B, k+1, N] of random torus
+    words with the edge words (0, 1, 2^(w-1) - 1, 2^(w-1), 2^(w-1) + 1,
+    2^w - 1) planted at both ends, and rotations a [B], the edge values 0,
+    1, 15, 16, 17, N-16, N-1, N, N+1, 2N-16, 2N-1 first."""
+    k1, N, w = (params.glwe_dimension + 1, params.polynomial_size,
+                params.torus_bits)
+    rng = np.random.default_rng(seed)
+    acc = rng.integers(0, 1 << w, size=(B, k1, N), dtype=np.uint64)
+    words = np.array([0, 1, (1 << (w - 1)) - 1, 1 << (w - 1),
+                      (1 << (w - 1)) + 1, (1 << w) - 1], np.uint64)
+    acc[:, 0, :6] = words
+    acc[:, -1, -6:] = words
+    edges = [0, 1, 15, 16, 17, N - 16, N - 1, N, N + 1, 2 * N - 16,
+             2 * N - 1]
+    a = np.array(edges + list(rng.integers(0, 2 * N, size=B)))[:B]
+    acc = acc.astype(np.uint32) if w == 32 else acc
+    return _bits(acc), torch.from_numpy(a.astype(np.int32)).to(DEVICE)
+
+
+def digit_bytes(params, B: int) -> int:
+    """Bytes a digit pass must move: acc read once, a read once, the int8
+    digit (limb) planes written once."""
+    from fhe_regex_tpu_torch.ops.pbs64 import n_digit_limbs
+
+    k1, N = params.glwe_dimension + 1, params.polynomial_size
+    word = params.torus_bits // 8
+    nd = n_digit_limbs(params.pbs_base_log) if word == 8 else 1
+    return B * k1 * N * word + B * 4 + B * k1 * params.pbs_level * nd * N
+
+
+def digit_pass(label, kernel, plain_fn, sets, widths, timed, seed):
+    """One digit pass (``stage1_digits`` or ``stage1_digits64``) against its
+    plain version on the same card inputs, tolerance zero, for each set
+    and B in `widths`; then, at the last set and each B of `timed`, both
+    timed per launch (``_graph_ms``) beside the byte bound.  Returns
+    (largest difference, {B: numbers})."""
+    err = 0
+    for params in sets:
+        for B in widths:
+            acc, a = _digit_inputs(params, B, seed + B)
+            got, want = kernel(params, acc, a), plain_fn(params, acc, a)
+            diff = int((got.to(torch.int32) - want.to(torch.int32)).abs()
+                       .max())
+            err = max(err, diff)
+            if got.shape != want.shape or not torch.equal(got, want):
+                raise AssertionError(f"{label} {params.name} B={B}: kernel "
+                                     f"!= plain (max |diff| {diff})")
+        print(f"{label} {params.name}: equal to plain at B={widths}, edge "
+              f"rotations planted", flush=True)
+    out = {}
+    for B in timed:
+        acc, a = _digit_inputs(params, B, seed + B)
+        t = dict(ms=_graph_ms(lambda: kernel(params, acc, a)),
+                 plain=_graph_ms(lambda: plain_fn(params, acc, a), reps=3))
+        bound = _bound(0, digit_bytes(params, B))
+        print(f"{label} {params.name} B={B}: device ms per launch (CUDA "
+              f"graph) {_fmt(t['ms'])}, plain {_fmt(t['plain'])}; bound "
+              f"{bound[0]:.5f} ({bound[1]})", flush=True)
+        out[B] = {k: float(np.median(v)) for k, v in t.items()}
+        out[B]["bound"] = bound
+    return err, out
+
+
 def step_kernels(params, bsk, pbs_cuda, plain):
-    """Phase 8, first half: one launch each of #2 (``stage1_digits``) and
-    #1 (``external_product_step``) against the plain versions on the same
-    card inputs, tolerance zero, at B = 8, 37 (a ragged batch tile) and
-    256, with their times at 8 and 256 (CUDA events, 3 samples) and the
-    float64 matmul's.  Returns {B: numbers}."""
+    """Phase 8, external product: one launch of #1
+    (``external_product_step``) against the plain version on the same card
+    inputs, tolerance zero, at B = 8, 37 (a ragged batch tile) and 256,
+    timed per launch at 8 and 256 (``_graph_ms``) beside the plain version
+    and one float64 ``torch.matmul`` with the Toeplitz matrix prebuilt.
+    Returns {B: numbers}."""
     k1, N = params.glwe_dimension + 1, params.polynomial_size
     rows = k1 * params.pbs_level
-    out = {}
+    out, errs = {}, []
     for B in (8, 37, 256):
-        rng = np.random.default_rng(300 + B)
-        acc = torch.from_numpy(rng.integers(-2**31, 2**31, size=(B, k1, N))
-                               .astype(np.int32)).to(DEVICE)
-        a = torch.from_numpy(rng.integers(0, 2 * N, size=B)
-                             .astype(np.int32)).to(DEVICE)
+        acc, a = _digit_inputs(params, B, 300 + B)
         d = pbs_cuda.stage1_digits(params, acc, a)
-        d_plain = plain.stage1_digits(params, acc, a)
-        s1_err = int((d.to(torch.int32) - d_plain.to(torch.int32)).abs()
-                     .max())
-        if d.shape != (B, rows, N) or not torch.equal(d, d_plain):
-            raise AssertionError(f"stage1_digits B={B}: kernel != plain "
-                                 f"(max |diff| {s1_err})")
         before = acc.clone()
         got = pbs_cuda.external_product_step(params, d, bsk[0], acc)
         want = plain.external_product_step(params, d, bsk[0], acc)
         ep_err = _max_abs_err(got, want)
+        errs.append(ep_err)
         if not torch.equal(got, want) or not torch.equal(acc, before):
             raise AssertionError(f"external_product_step B={B}: kernel != "
                                  f"plain (max |diff| {ep_err}) or acc "
@@ -405,26 +489,21 @@ def step_kernels(params, bsk, pbs_cuda, plain):
         if not torch.equal(lib, want):
             raise AssertionError("the float64 matmul does not compute #1")
         if B == 37:
-            print(f"step kernels {params.name} B={B}: equal plain",
+            print(f"external_product_step {params.name} B={B}: equal plain",
                   flush=True)
             continue
         t = dict(
-            s1=_event_ms(lambda: pbs_cuda.stage1_digits(params, acc, a)),
-            s1_plain=_event_ms(lambda: plain.stage1_digits(params, acc, a)),
-            ep=_event_ms(lambda: pbs_cuda.external_product_step(
+            ep=_graph_ms(lambda: pbs_cuda.external_product_step(
                 params, d, bsk[0], acc)),
-            ep_plain=_event_ms(lambda: plain.external_product_step(
-                params, d, bsk[0], acc)),
-            ep_lib=_event_ms(lambda: torch.matmul(df, W)))
-        print(f"step kernels {params.name} B={B}: stage1_digits and "
-              f"external_product_step equal plain; ms per launch (3 "
-              f"samples): stage1 {_fmt(t['s1'])}, plain "
-              f"{_fmt(t['s1_plain'])}; external product {_fmt(t['ep'])}, "
-              f"plain {_fmt(t['ep_plain'])}, float64 matmul "
-              f"{_fmt(t['ep_lib'])}", flush=True)
+            ep_plain=_graph_ms(lambda: plain.external_product_step(
+                params, d, bsk[0], acc), reps=3),
+            ep_lib=_graph_ms(lambda: torch.matmul(df, W), reps=3))
+        print(f"external_product_step {params.name} B={B}: equal plain; "
+              f"device ms per launch (CUDA graph) {_fmt(t['ep'])}, plain "
+              f"{_fmt(t['ep_plain'])}, float64 matmul {_fmt(t['ep_lib'])}",
+              flush=True)
         out[B] = {k: float(np.median(v)) for k, v in t.items()}
-        out[B].update(s1_err=s1_err, ep_err=ep_err)
-    return out
+    return max(errs), out
 
 
 def _fmt(ms) -> str:
@@ -666,7 +745,7 @@ def main() -> int:
     from fhe_regex_tpu_torch.ops import pbs as plain
     from fhe_regex_tpu_torch.ops import pbs_cuda
     from fhe_regex_tpu_torch.ops.pbs import blind_rotate, prepare_server_key
-    from fhe_regex_tpu_torch.ops.pbs64 import blind_rotate64
+    from fhe_regex_tpu_torch.ops.pbs64 import blind_rotate64, stage1_digits64
     from fhe_regex_tpu_torch.params import get_params
 
     smi = subprocess.run(
@@ -705,6 +784,20 @@ def main() -> int:
             timed=True)
         errs.append(err)
         times[B] = (k_s, p_s)
+    # three rotations enqueued back to back, each step's two kernels
+    # chained by programmatic dependent launch: a missing wait would race
+    x = _rotation_inputs(full, ck, 8, seed=308)
+    args = (full, dk.bsk, x["luts"], x["lut_idx"], x["ms"])
+    want = blind_rotate(*args)
+    runs = [pbs_cuda.blind_rotate_fused(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    for i, got in enumerate(runs):
+        errs.append(_max_abs_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"blind_rotate_fused B=8, run {i} of 3 "
+                                 f"back to back: kernel != plain")
+    print("blind_rotate_fused B=8 three times back to back: each equal to "
+          "plain", flush=True)
 
     # ---- phase 3: the 32-bit main path, six requests ----
     main_launches, results = main_path(port, pbs_cuda, full, ck, sk,
@@ -805,8 +898,16 @@ def main() -> int:
     # ---- phase 7: 64-bit throughput ----
     throughput(full64, ck64, sk64, "cuda64-bg")
 
-    # ---- phase 8: the per-step kernels #2 and #1 against plain ----
-    steps = step_kernels(full, dk.bsk, pbs_cuda, plain)
+    # ---- phase 8: the per-step kernels #2 and #1, and the 64-bit digit
+    # pass, against plain ----
+    s1_err, s1 = digit_pass("stage1_digits", pbs_cuda.stage1_digits,
+                            plain.stage1_digits, (small, full), (8, 37, 256),
+                            (8, 256, 512), seed=600)
+    b23 = dataclasses.replace(small64, name="TEST_PARAMS_64_B23",
+                              pbs_base_log=23, pbs_level=1)
+    digit_pass("stage1_digits64", pbs_cuda.stage1_digits64, stage1_digits64,
+               (b23, full64), (8, 37, 256), (8, 256, 512), seed=700)
+    ep_err, steps = step_kernels(full, dk.bsk, pbs_cuda, plain)
     steps_vs_fused(full, ck, dk.bsk, pbs_cuda)
 
     # ---- phase 9: the batch-grid kernel #4 against plain ----
@@ -837,15 +938,12 @@ def main() -> int:
     step_macs = B * rows * k1 * N * N
     kernels = [
         entry("external_product_step", "blind_rotate.cu", 114, ep_launches,
-              max(steps[b]["ep_err"] for b in steps), steps[B]["ep"],
-              steps[B]["ep_plain"],
+              ep_err, steps[B]["ep"], steps[B]["ep_plain"],
               _bound(2 * step_macs * limb_pairs(full),
                      B * rows * N + rows * k1 * N * 4 + 2 * B * k1 * N * 4),
               library_ms=steps[B]["ep_lib"]),
-        entry("stage1_digits", "blind_rotate.cu", 235, s1_launches,
-              max(steps[b]["s1_err"] for b in steps), steps[B]["s1"],
-              steps[B]["s1_plain"],
-              _bound(0, B * k1 * N * 4 + B * 4 + B * rows * N)),
+        entry("stage1_digits", "blind_rotate.cu", 235, s1_launches, s1_err,
+              s1[B]["ms"], s1[B]["plain"], s1[B]["bound"]),
         entry("blind_rotate_fused", "blind_rotate.cu", 358, main_launches,
               max(errs), times[B][0] * 1e3, times[B][1] * 1e3,
               rotation_bound(full, B, L)),

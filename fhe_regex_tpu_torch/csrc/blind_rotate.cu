@@ -55,20 +55,41 @@
 //    balanced digits into an int8 scratch) and one `ext_product` launch.
 //    The step loop runs on the host side of this library, so a level of
 //    any width spreads every step over the whole card.
+//  * Inside a rotation both launches are programmatic dependent launches
+//    (hopper.cuh): `ext_product` lets the next `stage1` start once its
+//    products are summed, so that one is resident, `a` read, while the
+//    epilogue drains; `ext_product` starts as `stage1`'s blocks exit, with
+//    no launch gap.  Each waits for the one before before it reads or
+//    writes what that one touches.
 //  * fhe_blind_rotate_bg runs the same launches block by block.  A block's
 //    working set is tb x (16 KB accumulator + 12 KB digits), 25 MB at the
 //    default cap tb = 896: inside the 50 MB L2.
-//  * fhe_stage1_digits is bound by bytes (read the accumulator, write the
-//    digits); fhe_external_product_step by the int8 operations, as above.
+//
+// The digit pass (`stage1`, the port of _stage1_kernel :235) is bound by
+// bytes: read the accumulator once, write l int8 digit planes, B * (k+1) *
+// N * (4 + l) bytes, 7 MB at B = 256 (2.2 us at 3.35 TB/s).  Its design:
+//  * The grid is (batch row, coefficient segment, component), indices from
+//    blockIdx alone (no division); segments of S = 128 ... 1024
+//    coefficients, as long as B * (k+1) * N / S still fills the 132 SMs
+//    (S = 128 at B = 8, 1024 at B >= 37 for N = 2048).
+//  * The block reads a = cts_ms[b, step] once, then stages its segment of
+//    the row and the rotated source run (at most two runs of the row, the
+//    sign flipped past N) into shared memory with 16-byte loads, all of a
+//    thread's in flight together, padded so a warp's reads hit 32 banks
+//    (hopper.cuh).
+//  * Each thread rounds and decomposes 16 consecutive coefficients and
+//    writes each of the l digit planes with one 16-byte store.
 //
 // All torus arithmetic is uint32_t: wraparound is defined there.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads1 = 256;      // stage1 / acc_init block
+constexpr int kThreads1 = 256;      // acc_init block
 constexpr int kWarpsE = 4;          // warps per ext_product block
 constexpr int NT = 2;               // n8 tiles per warp
 constexpr int TN = kWarpsE * NT * 8;  // coefficients per block (64)
@@ -98,29 +119,6 @@ __device__ __forceinline__ uint32_t limbs8(uint32_t w) {
   return out;
 }
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 // acc[b, c<k, :] = 0;  acc[b, k, m] = (X^{r0} * lut)[m],
 // r0 = (2N - b~) mod 2N,  lut = luts[lut_idx[b]].
 __global__ void acc_init(const int32_t* __restrict__ cts_ms,
@@ -146,33 +144,65 @@ __global__ void acc_init(const int32_t* __restrict__ cts_ms,
 }
 
 // digits[b, c*l + j, m] = j-th most significant balanced digit of
-// (X^{a_i} * acc[b, c])[m] - acc[b, c, m].
-__global__ void stage1(const int32_t* __restrict__ cts_ms,
-                       const uint32_t* __restrict__ acc,
-                       int8_t* __restrict__ digits, int B, int n, int k1,
-                       int N, int level, int base_log, int step) {
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)B * k1 * N) return;
-  int m = (int)(e % N);
-  int c = (int)((e / N) % k1);
-  int b = (int)(e / ((long long)N * k1));
-  int twoN = 2 * N;
-  int a = cts_ms[(long long)b * (n + 1) + step];
-  const uint32_t* p = acc + ((long long)b * k1 + c) * N;
-  int s = (m - a) & (twoN - 1);
-  uint32_t rot = s < N ? p[s] : 0u - p[s - N];
-  uint32_t diff = rot - p[m];
-  int shift = 32 - base_log * level;
-  uint32_t state = (diff + (1u << (shift - 1))) >> shift;
-  uint32_t base = 1u << base_log;
-  uint32_t half = base >> 1;
-  int8_t* out = digits + ((long long)b * k1 * level + (long long)c * level) * N + m;
-  for (int j = level - 1; j >= 0; --j) {   // least significant first
-    uint32_t d = state & (base - 1u);
-    int sd = d >= half ? (int)d - (int)base : (int)d;
-    state = (state - (uint32_t)sd) >> base_log;
-    out[(long long)j * N] = (int8_t)sd;
+// (X^a * acc[b, c])[m] - acc[b, c, m], a = cts_ms[b, step], for m in the
+// block's segment [m0, m0 + S), S = 16 * blockDim.x; grid (b, segment, c).
+__global__ void __launch_bounds__(kSegMax / kPerThread)
+stage1(const int32_t* __restrict__ cts_ms, const uint32_t* __restrict__ acc,
+       int8_t* __restrict__ digits, int n, int k1, int N, int level,
+       int base_log, int step) {
+  extern __shared__ __align__(16) uint32_t sm1[];
+  __shared__ int a_s;
+  const int S = blockDim.x * kPerThread;
+  const int b = blockIdx.x, m0 = blockIdx.y * S, c = blockIdx.z;
+  const int t = threadIdx.x;
+  if (t == 0) a_s = cts_ms[(size_t)b * (n + 1) + step];
+  const uint32_t* p = acc + ((size_t)b * k1 + c) * N;
+  pdl_wait();                                // acc is the last step's
+  const int s0 = stage_digit_runs(sm1, p, m0, &a_s, N);  // m0's source
+  const int off = s0 & 3;                    // s0 - its 16-byte group
+  const uint32_t* acc_s = sm1;
+  const uint32_t* src_s = sm1 + spad_words(S);
+
+  const int shift = 32 - base_log * level;
+  const uint32_t rnd = 1u << (shift - 1);
+  uint32_t st[kPerThread];
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    const int i = t * kPerThread + q;
+    const uint32_t v = src_s[spad(off + i)];
+    const uint32_t rot = ((s0 + i) & N) ? 0u - v : v;   // past N: -p
+    st[q] = (rot - acc_s[spad(i)] + rnd) >> shift;
   }
+  const uint32_t mask = (1u << base_log) - 1u, half = 1u << (base_log - 1);
+  int8_t* out = digits + ((size_t)b * k1 + c) * level * N + m0 + t * kPerThread;
+  for (int j = level - 1; j >= 0; --j) {   // least significant first
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) {
+      const uint32_t d = st[q] & mask;
+      const uint32_t sd = d >= half ? d - mask - 1u : d;   // balanced
+      st[q] = (st[q] - sd) >> base_log;
+      w[q >> 2] |= (sd & 0xFFu) << (8 * (q & 3));
+    }
+    *reinterpret_cast<uint4*>(out + (size_t)j * N) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// One stage1 launch on `stream`, a programmatic dependent launch inside a
+// rotation (`pdl`), an ordinary one alone.
+int launch_stage1(const int32_t* cts_ms, const uint32_t* acc, int8_t* digits,
+                  int B, int n, int k1, int N, int level, int base_log,
+                  int step, bool pdl, cudaStream_t stream) {
+  const int S = stage1_segment(B, k1, N);
+  const dim3 grid(B, N / S, k1), block(S / kPerThread);
+  const size_t smem = stage1_smem<uint32_t>(S);
+  if (pdl)
+    return launch_pdl(stage1, grid, block, smem, stream, cts_ms, acc, digits,
+                      n, k1, N, level, base_log, step);
+  stage1<<<grid, block, smem, stream>>>(cts_ms, acc, digits, n, k1, N, level,
+                                        base_log, step);
+  return (int)cudaGetLastError();
 }
 
 // acc[b, c, m] += sum_t digits[b, r, t] * dbl_{r,c}[(m - t) mod 2N] over
@@ -218,6 +248,7 @@ ext_product(const int8_t* __restrict__ digits,
     }
     cp_async_commit();
   };
+  pdl_wait();            // the digits and acc of this step's stage1
   stage_chunk(0);
 
   // the reversed windows: rev[y] = dbl[(M0 + TN - 1 - y) mod 2N], copy s
@@ -290,6 +321,7 @@ ext_product(const int8_t* __restrict__ digits,
     }
     __syncthreads();   // stage kc % NSTAGE consumed before it is refilled
   }
+  pdl_launch_dependents();   // the next digit pass may start; it waits
 
   // d fragment q: row g (+8 for q >= 2), column 2*tig + (q & 1)
 #pragma unroll
@@ -319,11 +351,11 @@ size_t ext_product_smem(int N, int mt) {
 }
 
 // One ext_product launch on `stream` (after its shared-memory opt-in,
-// raised once per instance to the largest size asked for); returns a
-// cudaError_t.
+// raised once per instance to the largest size asked for), a programmatic
+// dependent launch inside a rotation (`pdl`); returns a cudaError_t.
 int launch_ext_product(const int8_t* digits, const uint32_t* ggsw,
                        uint32_t* acc, int B, int k1, int N, int rows,
-                       cudaStream_t stream) {
+                       bool pdl, cudaStream_t stream) {
   static size_t opted[3] = {0, 0, 0};
   const int mt = ext_mt(B);
   const int which = mt == 1 ? 0 : (mt == 2 ? 1 : 2);
@@ -337,6 +369,9 @@ int launch_ext_product(const int8_t* digits, const uint32_t* ggsw,
     if (err != cudaSuccess) return (int)err;
     opted[which] = smem;
   }
+  if (pdl)
+    return launch_pdl(kern, grid, dim3(kWarpsE * 32), smem, stream, digits,
+                      ggsw, acc, B, k1, N, rows);
   kern<<<grid, kWarpsE * 32, smem, stream>>>(digits, ggsw, acc, B, k1, N,
                                              rows);
   return (int)cudaGetLastError();
@@ -361,12 +396,11 @@ int rotate32(const int32_t* cts_ms, const int32_t* luts,
   if (err != cudaSuccess) return (int)err;
   const long long step_stride = (long long)rows * k1 * N;
   for (int i = 0; i < n; ++i) {
-    stage1<<<grid1, kThreads1, 0, stream>>>(cts_ms, acc, digits, B, n, k1, N,
-                                            level, base_log, i);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    int e = launch_ext_product(digits, bsk + i * step_stride, acc, B, k1, N,
-                               rows, stream);
+    int e = launch_stage1(cts_ms, acc, digits, B, n, k1, N, level, base_log,
+                          i, true, stream);
+    if (e != 0) return e;
+    e = launch_ext_product(digits, bsk + i * step_stride, acc, B, k1, N, rows,
+                           true, stream);
     if (e != 0) return e;
   }
   return 0;
@@ -379,7 +413,7 @@ extern "C" {
 // The whole blind rotation, enqueued on `stream`; returns a cudaError_t.
 //   cts_ms  [B, n+1] int32 in [0, 2N)      luts [L, N]    lut_idx [B]
 //   bsk     [n, k1*level, k1, N]           acc  [B, k1, N] (output)
-//   digits  [B, k1*level, N] int8 scratch (16-byte aligned)
+//   digits  [B, k1*level, N] int8 scratch; acc and digits 16-byte aligned
 // Needs N a power of two, a multiple of 256, and 32 - base_log*level >= 1.
 int fhe_blind_rotate(const int32_t* cts_ms, const int32_t* luts,
                      const int32_t* lut_idx, const int32_t* bsk, int32_t* acc,
@@ -414,15 +448,14 @@ int fhe_blind_rotate_bg(const int32_t* cts_ms, const int32_t* luts,
 // One CMUX step's digits (the `_stage1_kernel` counterpart): digits[b, c*l
 // + j, :] = j-th most significant balanced digit of X^{a[b]} * acc[b, c] -
 // acc[b, c].  a [B] int32 in [0, 2N) is read as a one-column cts_ms (n = 0,
-// step 0); acc [B, k1, N]; digits [B, k1*level, N] int8 (output).
+// step 0); acc [B, k1, N] and digits [B, k1*level, N] int8 (output), both
+// 16-byte aligned.
 int fhe_stage1_digits(const int32_t* a, const int32_t* acc, int8_t* digits,
                       int B, int k1, int N, int level, int base_log,
                       void* stream_ptr) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  stage1<<<elementwise_grid(B, k1, N), kThreads1, 0, stream>>>(
-      a, reinterpret_cast<const uint32_t*>(acc), digits, B, 0, k1, N, level,
-      base_log, 0);
-  return (int)cudaGetLastError();
+  return launch_stage1(a, reinterpret_cast<const uint32_t*>(acc), digits, B,
+                       0, k1, N, level, base_log, 0, false,
+                       static_cast<cudaStream_t>(stream_ptr));
 }
 
 // One CMUX step's external product (the `_ext_product_kernel`
@@ -440,7 +473,7 @@ int fhe_external_product_step(const int8_t* digits, const int32_t* ggsw_i,
   if (err != cudaSuccess) return (int)err;
   return launch_ext_product(digits, reinterpret_cast<const uint32_t*>(ggsw_i),
                             reinterpret_cast<uint32_t*>(out), B, k1, N,
-                            k1 * level, stream);
+                            k1 * level, false, stream);
 }
 
 }  // extern "C"

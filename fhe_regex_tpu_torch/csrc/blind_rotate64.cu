@@ -67,7 +67,21 @@
 //    `nvcc -Xptxas -v` reports).
 //  * Per step: one `stage1_64` launch (rotate by a~_i, subtract, round,
 //    balanced digits split into int8 limbs) and one `ext_product64` launch,
-//    from a step loop on the host side of this library.
+//    from a step loop on the host side of this library, both programmatic
+//    dependent launches chained as in the 32-bit rotation (hopper.cuh):
+//    the next `stage1_64` starts once the products are summed and waits
+//    before it reads the accumulator; `ext_product64` starts as the digit
+//    pass's blocks exit and waits before it stages the digits.
+//
+// The digit pass `stage1_64` is bound by bytes: read the accumulator once,
+// write l * nd int8 limb planes, B * (k+1) * N * (8 + l * nd) bytes, 11.5 MB
+// at B = 256 (3.4 us at 3.35 TB/s).  It is laid out as the 32-bit `stage1`
+// (csrc/blind_rotate.cu): grid (batch row, segment, component) with no
+// division, `a` read once per block, the row's segment and the rotated
+// source run staged in padded shared memory by 16-byte loads, 16
+// coefficients per thread, each limb plane written by one 16-byte store.
+// `fhe_stage1_digits64` launches it alone, to hold it against its plain
+// version (ops/pbs64.py::stage1_digits64) and time it.
 //
 // What the TPU kernels needed and this one does not: the (lo, hi) int32
 // pairs with explicit carries, the roll chains standing in for indexed
@@ -79,9 +93,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads1 = 256;        // stage1_64 / acc_init64 block
+constexpr int kThreads1 = 256;        // acc_init64 block
 constexpr int kWarps = 8;             // warps per ext_product64 block
 constexpr int NT = 1;                 // n8 tiles per warp
 constexpr int TN = kWarps * NT * 8;   // coefficients per block (64)
@@ -121,29 +137,6 @@ __device__ __forceinline__ void transpose4(uint32_t a, uint32_t b, uint32_t c,
   out[3] = __byte_perm(ab_hi, cd_hi, 0x7632);
 }
 
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
 // acc[b, c<k, :] = 0;  acc[b, k, m] = (X^{r0} * lut)[m],
 // r0 = (2N - b~) mod 2N,  lut = luts[lut_idx[b]].
 __global__ void acc_init64(const int32_t* __restrict__ cts_ms,
@@ -168,37 +161,77 @@ __global__ void acc_init64(const int32_t* __restrict__ cts_ms,
 }
 
 // digits[b, (c*l + j)*nd + dl, m] = int8 limb dl of the j-th most
-// significant balanced digit of (X^{a_i} * acc[b, c])[m] - acc[b, c, m].
-__global__ void stage1_64(const int32_t* __restrict__ cts_ms,
-                          const uint64_t* __restrict__ acc,
-                          int8_t* __restrict__ digits, int B, int n, int k1,
-                          int N, int level, int base_log, int nd, int step) {
-  long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)B * k1 * N) return;
-  int m = (int)(e % N);
-  int c = (int)((e / N) % k1);
-  int b = (int)(e / ((long long)N * k1));
-  int twoN = 2 * N;
-  int a = cts_ms[(long long)b * (n + 1) + step];
-  const uint64_t* p = acc + ((long long)b * k1 + c) * N;
-  int s = (m - a) & (twoN - 1);
-  uint64_t rot = s < N ? p[s] : 0ull - p[s - N];
-  uint64_t diff = rot - p[m];
-  int shift = 64 - base_log * level;
-  uint64_t state = (diff + (1ull << (shift - 1))) >> shift;
-  uint64_t base = 1ull << base_log;
-  uint64_t half = base >> 1;
-  int8_t* out = digits + ((long long)b * k1 + c) * level * nd * N + m;
+// significant balanced digit of (X^a * acc[b, c])[m] - acc[b, c, m],
+// a = cts_ms[b, step], for m in the block's segment [m0, m0 + S),
+// S = 16 * blockDim.x; grid (b, segment, c).
+__global__ void __launch_bounds__(kSegMax / kPerThread)
+stage1_64(const int32_t* __restrict__ cts_ms, const uint64_t* __restrict__ acc,
+          int8_t* __restrict__ digits, int n, int k1, int N, int level,
+          int base_log, int nd, int step) {
+  extern __shared__ __align__(16) uint64_t sm64[];
+  __shared__ int a_s;
+  const int S = blockDim.x * kPerThread;
+  const int b = blockIdx.x, m0 = blockIdx.y * S, c = blockIdx.z;
+  const int t = threadIdx.x;
+  if (t == 0) a_s = cts_ms[(size_t)b * (n + 1) + step];
+  const uint64_t* p = acc + ((size_t)b * k1 + c) * N;
+  pdl_wait();                                // acc is the last step's
+  const int s0 = stage_digit_runs(sm64, p, m0, &a_s, N);  // m0's source
+  const int off = s0 & 1;                    // s0 - its 16-byte group
+  const uint64_t* acc_s = sm64;
+  const uint64_t* src_s = sm64 + spad_words(S);
+
+  const int shift = 64 - base_log * level;
+  const uint64_t rnd = 1ull << (shift - 1);
+  uint64_t st[kPerThread];
+#pragma unroll
+  for (int q = 0; q < kPerThread; ++q) {
+    const int i = t * kPerThread + q;
+    const uint64_t v = src_s[spad(off + i)];
+    const uint64_t rot = ((s0 + i) & N) ? 0ull - v : v;   // past N: -p
+    st[q] = (rot - acc_s[spad(i)] + rnd) >> shift;
+  }
+  const uint64_t mask = (1ull << base_log) - 1ull;
+  const uint64_t half = 1ull << (base_log - 1);
+  int8_t* out = digits + ((size_t)b * k1 + c) * level * nd * N + m0 +
+                t * kPerThread;
   for (int j = level - 1; j >= 0; --j) {   // least significant first
-    uint64_t d = state & (base - 1ull);
-    long long sd = d >= half ? (long long)d - (long long)base : (long long)d;
-    state = (state - (uint64_t)sd) >> base_log;
-    for (int dl = 0; dl < nd; ++dl) {     // balanced: ((v+128) & 255) - 128
-      const int8_t limb = (int8_t)(sd & 0xFF);
-      out[((long long)j * nd + dl) * N] = limb;
-      sd = (sd - limb) >> 8;
+    uint64_t sd[kPerThread];                // the balanced digits, as uint64
+#pragma unroll
+    for (int q = 0; q < kPerThread; ++q) {
+      const uint64_t d = st[q] & mask;
+      sd[q] = d >= half ? d - mask - 1ull : d;
+      st[q] = (st[q] - sd[q]) >> base_log;
+    }
+    for (int dl = 0; dl < nd; ++dl) {       // balanced: ((v+128) & 255) - 128
+      uint32_t w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+      for (int q = 0; q < kPerThread; ++q) {
+        const int64_t limb = (int8_t)(sd[q] & 0xFFull);
+        w[q >> 2] |= (uint32_t)(sd[q] & 0xFFull) << (8 * (q & 3));
+        sd[q] = (uint64_t)(((int64_t)sd[q] - limb) >> 8);
+      }
+      *reinterpret_cast<uint4*>(out + ((size_t)j * nd + dl) * N) =
+          make_uint4(w[0], w[1], w[2], w[3]);
     }
   }
+}
+
+// One stage1_64 launch on `stream`, a programmatic dependent launch inside
+// a rotation (`pdl`), an ordinary one alone.
+int launch_stage1_64(const int32_t* cts_ms, const uint64_t* acc,
+                     int8_t* digits, int B, int n, int k1, int N, int level,
+                     int base_log, int nd, int step, bool pdl,
+                     cudaStream_t stream) {
+  const int S = stage1_segment(B, k1, N);
+  const dim3 grid(B, N / S, k1), block(S / kPerThread);
+  const size_t smem = stage1_smem<uint64_t>(S);
+  if (pdl)
+    return launch_pdl(stage1_64, grid, block, smem, stream, cts_ms, acc,
+                      digits, n, k1, N, level, base_log, nd, step);
+  stage1_64<<<grid, block, smem, stream>>>(cts_ms, acc, digits, n, k1, N,
+                                           level, base_log, nd, step);
+  return (int)cudaGetLastError();
 }
 
 // acc[b, c, m] += sum_t digit[b, r, t] * dbl_{r,c}[(m - t) mod 2N] (mod 2^64)
@@ -248,6 +281,7 @@ ext_product64(const int8_t* __restrict__ digits,   // [B, rows*ND, N]
     }
     cp_async_commit();
   };
+  pdl_wait();            // the digits and acc of this step's stage1_64
   stage_chunk(0);
 
   // the reversed windows: rev[y] = dbl[(M0 + TN - 1 - y) mod 2N]; copy s
@@ -334,6 +368,7 @@ ext_product64(const int8_t* __restrict__ digits,   // [B, rows*ND, N]
     }
     __syncthreads();   // stage kc % NSTAGE consumed before it is refilled
   }
+  pdl_launch_dependents();   // the next digit pass may start; it waits
 
   // d fragment q: row g (+8 for q >= 2), column 2*tig + (q & 1)
 #pragma unroll
@@ -362,7 +397,8 @@ size_t ext_product64_smem(int N, int nd, int mt) {
 }
 
 // One ext_product64<ND, MT> launch on `stream` (after its shared-memory
-// opt-in, raised once per instance to the largest size asked for).
+// opt-in, raised once per instance to the largest size asked for), a
+// programmatic dependent launch: it runs inside a rotation only.
 template <int ND, int MT>
 int launch_ext_product64_t(const int8_t* digits, const uint64_t* ggsw,
                            uint64_t* acc, int B, int k1, int N, int rows,
@@ -377,9 +413,9 @@ int launch_ext_product64_t(const int8_t* digits, const uint64_t* ggsw,
     opted = smem;
   }
   const dim3 grid((B + 16 * MT - 1) / (16 * MT), k1 * (N / TN), rows);
-  ext_product64<ND, MT><<<grid, kWarps * 32, smem, stream>>>(
-      digits, ggsw, acc, B, k1, N, rows, drop_mask, drop_body);
-  return (int)cudaGetLastError();
+  return launch_pdl(ext_product64<ND, MT>, grid, dim3(kWarps * 32), smem,
+                    stream, digits, ggsw, acc, B, k1, N, rows, drop_mask,
+                    drop_body);
 }
 
 // Batch rows per block: 16 (MT = 1) up to B = 32, else 32 (MT = 2).
@@ -420,12 +456,11 @@ int rotate64(const int32_t* cts_ms, const uint64_t* luts,
   if (err != cudaSuccess) return (int)err;
   const long long step_stride = (long long)rows * k1 * N;
   for (int i = 0; i < n; ++i) {
-    stage1_64<<<grid1, kThreads1, 0, stream>>>(cts_ms, acc, digits, B, n, k1,
-                                               N, level, base_log, nd, i);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    int e = launch_ext_product64(digits, bsk + i * step_stride, acc, B, k1, N,
-                                 rows, nd, drop_mask, drop_body, stream);
+    int e = launch_stage1_64(cts_ms, acc, digits, B, n, k1, N, level,
+                             base_log, nd, i, true, stream);
+    if (e != 0) return e;
+    e = launch_ext_product64(digits, bsk + i * step_stride, acc, B, k1, N,
+                             rows, nd, drop_mask, drop_body, stream);
     if (e != 0) return e;
   }
   return 0;
@@ -440,8 +475,8 @@ extern "C" {
 // `pallas64` kernel's counterpart, tb < B the `pallas64-bg` one's.
 //   cts_ms  [B, n+1] int32 in [0, 2N)      luts [L, N] uint64  lut_idx [B]
 //   bsk     [n, k1*level, k1, N] uint64    acc  [B, k1, N] uint64 (output)
-//   digits  [tb, k1*level*nd, N] int8 scratch (16-byte aligned), nd int8
-//           limbs per digit
+//   digits  [tb, k1*level*nd, N] int8 scratch, nd int8 limbs per digit;
+//           acc and digits 16-byte aligned
 // tb divides B.  The key is rounded to multiples of 256^drop_mask (mask
 // components) and 256^drop_body (body): the key limbs below are skipped.
 // Needs N a power of two in [256, 4096], base_log * level <= 31, and
@@ -459,6 +494,19 @@ int fhe_blind_rotate64(const int32_t* cts_ms, const uint64_t* luts,
     if (err != 0) return err;
   }
   return 0;
+}
+
+// One CMUX step's digit limbs, alone (the pass `stage1_64` of the
+// rotation): digits[b, (c*l + j)*nd + dl, :] = int8 limb dl of the j-th
+// most significant balanced digit of X^{a[b]} * acc[b, c] - acc[b, c].
+// a [B] int32 in [0, 2N) is read as a one-column cts_ms (n = 0, step 0);
+// acc [B, k1, N] uint64 and digits [B, k1*level*nd, N] int8 (output), both
+// 16-byte aligned.
+int fhe_stage1_digits64(const int32_t* a, const uint64_t* acc, int8_t* digits,
+                        int B, int k1, int N, int level, int base_log, int nd,
+                        void* stream_ptr) {
+  return launch_stage1_64(a, acc, digits, B, 0, k1, N, level, base_log, nd, 0,
+                          false, static_cast<cudaStream_t>(stream_ptr));
 }
 
 }  // extern "C"

@@ -131,6 +131,37 @@ def negacyclic_rotate_batch64(polys: torch.Tensor,
     return torch.where((s >= N)[:, None, :], -vals, vals)
 
 
+def digit_limb_planes(digits: torch.Tensor, nd: int) -> torch.Tensor:
+    """[B, rows, N] balanced digits -> [B, rows*nd, N] int8 planes, row r's
+    limb dl at plane r*nd + dl, d = sum_dl 2^(8 dl) limb_dl: each limb is
+    ((v + 128) & 255) - 128 (the low byte read as int8), then v = (v -
+    limb) >> 8, as the kernels' ``stage1_64`` splits a digit and the JAX
+    package's ``digit_limbs_i8`` does (3 limbs at base 2^23, the top one
+    in [-64, 64])."""
+    B, rows, N = digits.shape
+    v, out = digits.to(I64), []
+    for _ in range(nd):
+        limb = ((v + 128) & 255) - 128
+        out.append(limb)
+        v = (v - limb) >> 8
+    return torch.stack(out, 2).reshape(B, rows * nd, N).to(torch.int8)
+
+
+def stage1_digits64(params: Params, acc: torch.Tensor,
+                    a: torch.Tensor) -> torch.Tensor:
+    """One CMUX step's digit limbs at 64 bits: acc [B, k+1, N] int64, a [B]
+    int32 in [0, 2N) -> [B, (k+1)l * nd, N] int8 (nd = ``n_digit_limbs``),
+    the balanced digits of X^{a_b} * acc[b] - acc[b] in (component, level)
+    rows, most significant first, each split by ``digit_limb_planes`` (the
+    plain ``stage1_64``)."""
+    B, k1, N = acc.shape
+    l = params.pbs_level
+    diff = negacyclic_rotate_batch64(acc, a) - acc
+    digits = decompose64(diff, params.pbs_base_log, l)             # [l, B, k1, N]
+    digits = digits.permute(1, 2, 0, 3).reshape(B, k1 * l, N)
+    return digit_limb_planes(digits, n_digit_limbs(params.pbs_base_log))
+
+
 def _limbs16(g: torch.Tensor) -> torch.Tensor:
     """int64 -> [4, ...] float64 balanced 16-bit limbs in [-2^15, 2^15):
     g = sum_j limb_j * 2^(16j) mod 2^64."""

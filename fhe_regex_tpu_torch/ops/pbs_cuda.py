@@ -10,6 +10,9 @@ initial X^{-b~} rotation built on the device, or one CMUX stage at a time.
                               (``_fused_blindrot_bg_kernel``)
   ``stage1_digits``           one CMUX step's digits, same source
                               (``_stage1_kernel``)
+  ``stage1_digits64``         one CMUX step's 64-bit digit limbs, the pass
+                              ``stage1_64`` that #5 and #6 run each step,
+                              ``csrc/blind_rotate64.cu``
   ``external_product_step``   one CMUX step's external product, same
                               source (``_ext_product_kernel``)
   ``blind_rotate_steps``      the rotation as a Python loop over the two
@@ -25,10 +28,10 @@ Every wrapper takes its plain PyTorch version (``ops/pbs.py``,
 adding one to its ``launches`` count per launch; it never falls back.
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
-``build/`` at the repository root, keyed by a hash of the sources (one
-``nvcc`` per source, all at once, then one link), and bound through
-``ctypes`` (plain C entry points, no PyTorch headers).  Nothing is compiled
-or loaded when this module is imported.
+``build/`` at the repository root, keyed by a hash of the sources and the
+header they share (one ``nvcc`` per source, all at once, then one link),
+and bound through ``ctypes`` (plain C entry points, no PyTorch headers).
+Nothing is compiled or loaded when this module is imported.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ from pathlib import Path
 import torch
 
 from fhe_regex_tpu_torch.ops import pbs as plain
+from fhe_regex_tpu_torch.ops import pbs64
 from fhe_regex_tpu_torch.ops.pbs import blind_rotate
 from fhe_regex_tpu_torch.ops.pbs64 import blind_rotate64, n_digit_limbs
 from fhe_regex_tpu_torch.params import Params
@@ -50,6 +54,7 @@ from fhe_regex_tpu_torch.params import Params
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 SOURCES = ("blind_rotate.cu", "blind_rotate64.cu")
+HEADERS = ("hopper.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -71,7 +76,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the build for the current sources lives."""
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -120,6 +125,7 @@ def _load():
             "fhe_stage1_digits": (3, 5),
             "fhe_external_product_step": (4, 4),
             "fhe_blind_rotate64": (6, 10),
+            "fhe_stage1_digits64": (3, 6),
         }
         for name, (ptrs, ints) in signatures.items():
             fn = getattr(lib, name)
@@ -149,6 +155,11 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
                          f"{tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_aligned(name: str, t: torch.Tensor, why: str) -> None:
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary ({why})")
 
 
 def _on_cuda(what: str, t: torch.Tensor) -> bool:
@@ -298,7 +309,8 @@ def stage1_digits(params: Params, acc: torch.Tensor,
     """One CMUX step's digits, the contract of ``ops.pbs.stage1_digits``:
     acc [B, k+1, N] int32, a [B] int32 in [0, 2N) -> [B, (k+1)l, N] int8.
     CPU tensors take that plain version; CUDA tensors launch the kernel
-    (each call adds one to ``stage1_digits.launches``)."""
+    (each call adds one to ``stage1_digits.launches``), which reads acc in
+    16-byte groups: an acc not 16-byte aligned raises ValueError."""
     if not _on_cuda("stage1", acc):
         return plain.stage1_digits(params, acc, a)
     _check_params32(params)
@@ -306,6 +318,7 @@ def stage1_digits(params: Params, acc: torch.Tensor,
     l, B, dev = params.pbs_level, acc.shape[0], acc.device
     _check("acc", acc, (B, k1, N), torch.int32, dev)
     _check("a", a, (B,), torch.int32, dev)
+    _check_aligned("acc", acc, "the kernel stages it with 16-byte loads")
     digits = torch.empty((B, k1 * l, N), dtype=torch.int8, device=dev)
     _call("fhe_stage1_digits", dev, a.data_ptr(), acc.data_ptr(),
           digits.data_ptr(), B, k1, N, l, params.pbs_base_log)
@@ -333,9 +346,8 @@ def external_product_step(params: Params, digits: torch.Tensor,
     _check("acc", acc, (B, k1, N), torch.int32, dev)
     _check("digits", digits, (B, rows, N), torch.int8, dev)
     _check("ggsw_i", ggsw_i, (rows, k1, N), torch.int32, dev)
-    if digits.data_ptr() % 16:
-        raise ValueError("digits must start on a 16-byte boundary (the "
-                         "kernel stages them with 16-byte cp.async)")
+    _check_aligned("digits", digits,
+                   "the kernel stages them with 16-byte cp.async")
     out = torch.empty_like(acc)
     _call("fhe_external_product_step", dev, digits.data_ptr(),
           ggsw_i.data_ptr(), acc.data_ptr(), out.data_ptr(), B, k1, N,
@@ -365,15 +377,12 @@ def blind_rotate_steps(params: Params, bsk: torch.Tensor, luts: torch.Tensor,
 # ---------------- 64-bit torus ----------------
 
 
-def _check64(params: Params, bsk, luts, lut_idx, cts_ms,
-             drop=(0, 0)) -> None:
-    """What the 64-bit kernels take: N a power of two in [256, 4096] (the
-    key windows of a block in shared memory; int32 limb-class sums exact
-    for nd * N < 2^17), digits of 1 to 3 balanced int8 limbs (the
-    ``ext_product64`` templates), a drop of 0 to 7 key limbs."""
-    k1 = params.glwe_dimension + 1
-    N, n, l = params.polynomial_size, params.lwe_dimension, params.pbs_level
-    bl = params.pbs_base_log
+def _check_params64(params: Params) -> None:
+    """The 64-bit sets the kernels take: N a power of two in [256, 4096]
+    (the key windows of a block in shared memory; int32 limb-class sums
+    exact for nd * N < 2^17), digits of 1 to 3 balanced int8 limbs (the
+    ``ext_product64`` templates)."""
+    N, l, bl = params.polynomial_size, params.pbs_level, params.pbs_base_log
     if params.torus_bits != 64:
         raise ValueError("the 64-bit blind rotation needs a 64-bit set")
     if N & (N - 1) or not 256 <= N <= 4096:
@@ -386,6 +395,15 @@ def _check64(params: Params, bsk, luts, lut_idx, cts_ms,
     if nd > 3 or (1 << (bl - 1)) - 1 > 0x7F7F7F >> (8 * (3 - nd)):
         raise ValueError(f"base_log={bl}: the kernel splits a digit into "
                          f"1 to 3 balanced int8 limbs that must hold it")
+
+
+def _check64(params: Params, bsk, luts, lut_idx, cts_ms,
+             drop=(0, 0)) -> None:
+    """What the 64-bit rotations take: a set ``_check_params64`` admits,
+    a drop of 0 to 7 key limbs, and the tensors of ``blind_rotate64``."""
+    _check_params64(params)
+    k1 = params.glwe_dimension + 1
+    N, n, l = params.polynomial_size, params.lwe_dimension, params.pbs_level
     if len(drop) != 2 or not all(0 <= m < 8 for m in drop):
         raise ValueError(f"key-limb drop {drop}: need two counts in [0, 8)")
     B = cts_ms.shape[0]
@@ -450,3 +468,31 @@ def blind_rotate_fused64_bg(params: Params, bsk_rounded: torch.Tensor,
 
 
 blind_rotate_fused64_bg.launches = 0
+
+
+def stage1_digits64(params: Params, acc: torch.Tensor,
+                    a: torch.Tensor) -> torch.Tensor:
+    """One CMUX step's 64-bit digit limbs, the contract of
+    ``ops.pbs64.stage1_digits64``: acc [B, k+1, N] int64, a [B] int32 in
+    [0, 2N) -> [B, (k+1)l * nd, N] int8, nd = ``n_digit_limbs``.  CPU
+    tensors take that plain version; CUDA tensors launch ``stage1_64``
+    alone (each call adds one to ``stage1_digits64.launches``), which reads
+    acc in 16-byte groups: an acc not 16-byte aligned raises ValueError.
+    The rotations of #5 and #6 launch the same device code each step."""
+    if not _on_cuda("stage1_64", acc):
+        return pbs64.stage1_digits64(params, acc, a)
+    _check_params64(params)
+    k1, N = params.glwe_dimension + 1, params.polynomial_size
+    l, B, dev = params.pbs_level, acc.shape[0], acc.device
+    nd = n_digit_limbs(params.pbs_base_log)
+    _check("acc", acc, (B, k1, N), torch.int64, dev)
+    _check("a", a, (B,), torch.int32, dev)
+    _check_aligned("acc", acc, "the kernel stages it with 16-byte loads")
+    digits = torch.empty((B, k1 * l * nd, N), dtype=torch.int8, device=dev)
+    _call("fhe_stage1_digits64", dev, a.data_ptr(), acc.data_ptr(),
+          digits.data_ptr(), B, k1, N, l, params.pbs_base_log, nd)
+    stage1_digits64.launches += 1
+    return digits
+
+
+stage1_digits64.launches = 0

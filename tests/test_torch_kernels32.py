@@ -14,12 +14,20 @@ against the JAX package's Pallas kernels #1, #2 and #4, bit for bit.
   (balanced int8 limbs of [g, -g], byte-shifted reversed windows read at
   the m16n8k32 fragment addresses, four int8 products combined mod 2^32)
   is replayed by a plain int64 twin and equals ``external_product_step``.
+* So is the redesigned digit pass ``stage1`` (segments staged in padded
+  shared memory by 16-byte groups, 16 coefficients a thread, 16-byte plane
+  stores): its twin equals ``stage1_digits`` at edge rotations, N = 256
+  and 2048; its segment rule fills the card at B = 8; the wrappers refuse
+  an acc that is not 16-byte aligned.
 
 Inputs come from numpy seeds and the shared ``keys`` / ``noisy_keys``
 fixtures; tolerance is zero (integer arithmetic mod 2^32).  The CUDA
 kernels themselves are held against these plain versions on the card by
 ``chip_smoke.py``.
 """
+
+import dataclasses
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -358,3 +366,187 @@ def test_new_backends_need_cuda_and_32_bits(keys, backend):
     with pytest.raises(ValueError, match="needs a 32-bit"):
         tpbs.resolve_backend(backend, "cuda",
                              get_params("TPU64_MESSAGE_2_CARRY_2"))
+
+
+# ---- the index arithmetic of csrc/blind_rotate.cu's stage1, replayed ----
+SEG_MIN, SEG_MAX, PER_THREAD, WAVE = 128, 1024, 16, 132
+
+
+def _segment(B, k1, N):
+    """``stage1_segment`` of csrc/hopper.cuh: the longest power of two in
+    [128, min(N, 1024)] still giving B * k1 * N / S >= 132 blocks."""
+    S = min(N, SEG_MAX)
+    while S > SEG_MIN and B * k1 * (N // S) < WAVE:
+        S //= 2
+    return S
+
+
+def _spad(w):
+    return w + (w >> 4)
+
+
+def _stage1_twin(acc, a, level, base_log, S):
+    """``stage1``'s arithmetic in int64 on the CPU, block by block: acc
+    [B, k1, N] uint32 values (numpy int64), a [B] -> [B, k1*level, N] int8.
+
+    Block (b, segment, c) stages acc[b, c, m0 : m0+S) and the source run
+    from q0 = u0 - off, u0 = (m0 - a) mod N, in 16-byte groups at padded
+    shared positions w + w // 16, thread t loading groups t + kT of each
+    (k < 4; thread 0 also the source run's last); thread t takes
+    coefficients 16t + q,
+    reads source word off + i, flips its sign when (s0 + i) & N, and
+    writes each digit plane with one 16-byte store.  Every shared read must
+    hit a staged word, a warp's reads 32 banks, every group and store 16
+    bytes aligned, and every output byte be written once."""
+    B, k1, N = acc.shape
+    M = 0xFFFFFFFF
+    T, G = S // PER_THREAD, 4                  # threads; words per group
+    assert S // G == T * (PER_THREAD // G)   # thread t: groups t + kT
+    R = _spad(S - 1) + 1                       # the source run's offset
+    words = R + _spad(S + G - 1) + 1
+    out = np.zeros(B * k1 * level * N, np.int64)
+    written = np.zeros(out.shape, np.int64)
+    g_acc, g_src = np.arange(S // G), np.arange((S + G) // G)
+    e = np.arange(G)
+    t, q = np.arange(T)[:, None], np.arange(PER_THREAD)[None, :]
+    i = t * PER_THREAD + q                                        # [T, 16]
+    shift = 32 - base_log * level
+    mask, half = (1 << base_log) - 1, 1 << (base_log - 1)
+    for b in range(B):
+        for sg in range(N // S):
+            m0 = sg * S
+            s0 = (m0 - int(a[b])) & (2 * N - 1)
+            u0 = s0 & (N - 1)
+            off = u0 & 3
+            for c in range(k1):
+                p = acc[b, c]
+                sm = np.full(words, -1, np.int64)             # -1: not staged
+                for start, gs, base_w in ((m0, g_acc, 0),
+                                          (u0 - off, g_src, R)):
+                    first = (start + gs * G) & (N - 1)
+                    assert (first % G == 0).all() and (first + G <= N).all()
+                    pos = base_w + _spad(gs[:, None] * G + e[None, :])
+                    assert len(np.unique(pos)) == pos.size
+                    sm[pos] = p[first[:, None] + e[None, :]]
+                src_pos = R + _spad(off + i)
+                for w0 in range(0, T, 32):                    # one warp
+                    for qq in range(PER_THREAD):
+                        banks = src_pos[w0:w0 + 32, qq] % 32
+                        assert len(set(banks)) == banks.size
+                        banks = _spad(i[w0:w0 + 32, qq]) % 32
+                        assert len(set(banks)) == banks.size
+                v, own = sm[src_pos], sm[_spad(i)]
+                assert (v >= 0).all() and (own >= 0).all()
+                rot = np.where((s0 + i) & N, (-v) & M, v)
+                st = (((rot - own) & M) + (1 << (shift - 1))) & M
+                st >>= shift
+                row = (b * k1 + c) * level
+                for j in range(level - 1, -1, -1):
+                    d = st & mask
+                    sd = np.where(d >= half, d - mask - 1, d)
+                    st = ((st - sd) & M) >> base_log
+                    store = (row + j) * N + m0 + t[:, 0] * PER_THREAD
+                    assert (store % 16 == 0).all()
+                    at = store[:, None] + q
+                    out[at] = ((sd + 128) & 255) - 128
+                    written[at] += 1
+    assert (written == 1).all()
+    return torch.from_numpy(out.reshape(B, k1 * level, N).astype(np.int8))
+
+
+def _edge_rotations(N, rng, extra):
+    edges = [0, 1, 15, 16, 17, N - 16, N - 1, N, N + 1, 2 * N - 16, 2 * N - 1]
+    return np.array(edges + list(rng.integers(0, 2 * N, size=extra)),
+                    np.int32)
+
+
+def _edge_acc(rng, B, k1, N):
+    """Random uint32 rows with the torus edge words planted at both ends
+    of a row and around N/2."""
+    acc = _random_u32(rng, (B, k1, N)).astype(np.int64)
+    words = [0, 1, 0x7FFFFFFF, 0x80000000, 0x80000001, 0xFFFFFFFF]
+    acc[:, 0, :6] = words
+    acc[:, -1, -6:] = words
+    acc[::2, :, N // 2 - 3:N // 2 + 3] = words
+    return acc
+
+
+@pytest.mark.parametrize("N,S", [(256, 128), (256, 256), (2048, 128),
+                                 (2048, 512), (2048, 1024)])
+def test_stage1_twin_matches_plain(N, S):
+    """The replay of the redesigned ``stage1`` equals the plain
+    ``stage1_digits`` for the edge rotations (0, 1, 15, 16, 17, N-16, N-1,
+    N, N+1, 2N-16, 2N-1) and random ones, at segments of 128 to 1024."""
+    P = dataclasses.replace(_port_params(TEST_PARAMS), polynomial_size=N)
+    k1 = P.glwe_dimension + 1
+    rng = np.random.default_rng(N + S)
+    a = _edge_rotations(N, rng, 3)
+    acc = _edge_acc(rng, a.size, k1, N)
+    want = tpbs.stage1_digits(P, _t(acc.astype(np.uint32)),
+                              torch.from_numpy(a))
+    got = _stage1_twin(acc, a, P.pbs_level, P.pbs_base_log, S)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("base_log,level", [(1, 31), (4, 7), (7, 4)])
+def test_stage1_twin_other_gadgets(base_log, level):
+    """Gadgets the wrapper admits beyond base 2^7 x 3: one bit of rounding
+    left (31 x 1) and planes past the third."""
+    P = dataclasses.replace(_port_params(TEST_PARAMS), pbs_base_log=base_log,
+                            pbs_level=level)
+    N, k1 = P.polynomial_size, P.glwe_dimension + 1
+    rng = np.random.default_rng(base_log)
+    a = _edge_rotations(N, rng, 1)
+    acc = _edge_acc(rng, a.size, k1, N)
+    want = tpbs.stage1_digits(P, _t(acc.astype(np.uint32)),
+                              torch.from_numpy(a))
+    got = _stage1_twin(acc, a, level, base_log, _segment(a.size, k1, N))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,N,S", [(8, 2048, 128), (16, 2048, 256),
+                                   (37, 2048, 1024), (256, 2048, 1024),
+                                   (512, 2048, 1024), (8, 256, 128),
+                                   (256, 256, 256), (1, 4096, 128)])
+def test_stage1_segment_fills_the_card(B, N, S):
+    """Segments: a full wave of blocks (132 SMs) at B = 8 on the production
+    N, the longest segment that keeps one at wider levels."""
+    assert _segment(B, 2, N) == S
+    assert B * 2 * (N // S) >= WAVE or S == SEG_MIN
+
+
+def _misaligned(shape, dtype):
+    flat = torch.zeros(int(np.prod(shape)) + 1, dtype=dtype)
+    return flat[1:].view(shape)
+
+
+def test_stage1_wrappers_refuse_misaligned_acc(monkeypatch):
+    """On the CUDA route, an acc that does not start on 16 bytes raises
+    before anything is launched (the device is faked as CUDA here)."""
+    from fhe_regex_tpu_torch.params import get_params
+
+    monkeypatch.setattr(pbs_cuda, "_on_cuda", lambda what, t: True)
+    monkeypatch.setattr(pbs_cuda, "_call", None)          # never reached
+    p = get_params("TEST_PARAMS")
+    k1, N = p.glwe_dimension + 1, p.polynomial_size
+    a = torch.zeros(4, dtype=torch.int32)
+    acc = _misaligned((4, k1, N), torch.int32)
+    assert acc.data_ptr() % 16
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        pbs_cuda.stage1_digits(p, acc, a)
+    p64 = get_params("TEST_PARAMS_64")
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        pbs_cuda.stage1_digits64(p64, _misaligned((4, k1, N), torch.int64),
+                                 a)
+
+
+def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
+    """An edit of csrc/hopper.cuh, which both sources include, names a new
+    build: no stale library is loaded."""
+    src = tmp_path / "csrc"
+    shutil.copytree(pbs_cuda.CSRC, src)
+    monkeypatch.setattr(pbs_cuda, "CSRC", src)
+    before = pbs_cuda.library_path()
+    header = src / "hopper.cuh"
+    header.write_text(header.read_text() + "\n")
+    assert pbs_cuda.library_path() != before

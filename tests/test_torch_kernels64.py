@@ -14,6 +14,13 @@ the JAX package, bit for bit.
   JAX ``external_product64`` at the production digit shape.
 * The drop reaches ``cuda64-bg`` from the key: ``rotation_fn`` and
   ``mv._rotate_acc`` hand the wrapper ``DeviceServerKey.drop64``.
+* The redesigned ``stage1_64`` (segments of the uint64 row staged in
+  padded shared memory by 16-byte groups, 16 coefficients a thread, each
+  limb plane written with 16-byte stores) is replayed by an int64 twin
+  that equals the plain ``pbs64.stage1_digits64`` at edge rotations,
+  N = 256 and 2048; that plain pass equals JAX ``decompose64`` +
+  ``digit_limbs_i8``; its wrapper ``pbs_cuda.stage1_digits64`` is the
+  plain pass on the CPU, counts no launch there and refuses other devices.
 
 Sets: TEST_PARAMS_64 (one int8 limb per digit, 6 digit rows) and the same
 set with the production digit, base 2^23 at one level (three limbs, two
@@ -75,15 +82,14 @@ def _limbs8(w: torch.Tensor) -> torch.Tensor:
 
 def _digit_planes(digits: torch.Tensor, nd: int) -> torch.Tensor:
     """[B, rows, N] digits -> [B, rows*nd, N] int8 planes, row r limb dl at
-    r*nd + dl, split as ``stage1_64`` does (the low byte read as int8)."""
+    r*nd + dl (the port's ``digit_limb_planes``); the nd limbs must hold
+    each digit."""
     B, rows, N = digits.shape
-    v, out = digits.to(torch.int64), []
-    for _ in range(nd):
-        limb = ((v + 128) & 255) - 128
-        out.append(limb)
-        v = (v - limb) >> 8
-    assert not v.any()                        # the nd limbs hold the digit
-    return torch.stack(out, 2).reshape(B, rows * nd, N).to(torch.int8)
+    planes = t64.digit_limb_planes(digits, nd)
+    limbs = planes.view(B, rows, nd, N).to(torch.int64)
+    back = sum(limbs[:, :, dl] << (8 * dl) for dl in range(nd))
+    assert torch.equal(back, digits.to(torch.int64))
+    return planes
 
 
 def _ext_product64_twin(planes, ggsw, nd, drop):
@@ -321,3 +327,161 @@ def test_rotation_fn_and_mv_hand_cuda64_bg_the_key_drop(monkeypatch):
     accs = mv._rotate_acc(bg, vlut, cts)
     assert torch.equal(accs, mv._rotate_acc(plain, vlut, cts))
     assert seen == [drop, drop]
+
+
+# ---- the index arithmetic of csrc/blind_rotate64.cu's stage1_64 ----
+SEG_MIN, SEG_MAX, PER_THREAD, WAVE = 128, 1024, 16, 132
+M64 = (1 << 64) - 1
+
+
+def _segment(B, k1, N):
+    """``stage1_segment`` of csrc/hopper.cuh."""
+    S = min(N, SEG_MAX)
+    while S > SEG_MIN and B * k1 * (N // S) < WAVE:
+        S //= 2
+    return S
+
+
+def _spad(w):
+    return w + (w >> 4)
+
+
+def _stage1_64_twin(acc, a, level, base_log, nd, S):
+    """``stage1_64``'s arithmetic on the CPU in Python ints (uint64 words),
+    block by block: acc [B, k1, N] uint64, a [B] -> [B, k1*level*nd, N]
+    int8.  As the 32-bit twin (tests/test_torch_kernels32.py), with 2-word
+    16-byte groups (source run from u0 - (u0 & 1), S + 2 words), reads
+    through 64-bit banks (16 threads, 32 banks), and limb plane
+    (c*l + j)*nd + dl written by one 16-byte store per thread."""
+    B, k1, N = acc.shape
+    T, G = S // PER_THREAD, 2
+    assert S // G == T * (PER_THREAD // G)   # thread t: groups t + kT
+    R = _spad(S - 1) + 1
+    words = R + _spad(S + G - 1) + 1
+    out = np.zeros(B * k1 * level * nd * N, np.int64)
+    written = np.zeros(out.shape, np.int64)
+    shift = 64 - base_log * level
+    mask, half = (1 << base_log) - 1, 1 << (base_log - 1)
+    i_all = np.arange(S)
+    for b in range(B):
+        for sg in range(N // S):
+            m0 = sg * S
+            s0 = (m0 - int(a[b])) & (2 * N - 1)
+            u0 = s0 & (N - 1)
+            off = u0 & 1
+            src_pos = R + _spad(off + i_all)
+            for t0 in range(0, T, 16):                    # a half-warp
+                for qq in range(PER_THREAD):
+                    for pos in (src_pos, _spad(i_all)):
+                        w = pos[(np.arange(t0, min(t0 + 16, T)) * PER_THREAD
+                                 + qq)]
+                        banks = np.concatenate([2 * w % 32, (2 * w + 1) % 32])
+                        assert len(set(banks)) == banks.size
+            for c in range(k1):
+                p = [int(x) for x in acc[b, c]]
+                sm = [None] * words
+                for start, n, base_w in ((m0, S, 0), (u0 - off, S + G, R)):
+                    for g in range(n // G):
+                        first = (start + g * G) & (N - 1)
+                        assert first % G == 0 and first + G <= N
+                        for e in range(G):
+                            pos = base_w + _spad(g * G + e)
+                            assert sm[pos] is None
+                            sm[pos] = p[first + e]
+                row = (b * k1 + c) * level
+                for t in range(T):
+                    st = []
+                    for q in range(PER_THREAD):
+                        i = t * PER_THREAD + q
+                        v, own = sm[R + _spad(off + i)], sm[_spad(i)]
+                        rot = (-v) & M64 if (s0 + i) & N else v
+                        st.append(((rot - own + (1 << (shift - 1))) & M64)
+                                  >> shift)
+                    for j in range(level - 1, -1, -1):
+                        sd = []
+                        for q in range(PER_THREAD):
+                            d = st[q] & mask
+                            sd.append(d - mask - 1 if d >= half else d)
+                            st[q] = ((st[q] - sd[q]) & M64) >> base_log
+                        for dl in range(nd):
+                            store = ((row + j) * nd + dl) * N + m0 + 16 * t
+                            assert store % 16 == 0
+                            for q in range(PER_THREAD):
+                                limb = ((sd[q] + 128) & 255) - 128
+                                out[store + q] = limb
+                                written[store + q] += 1
+                                sd[q] = (sd[q] - limb) >> 8
+    assert (written == 1).all()
+    return torch.from_numpy(out.reshape(B, k1 * level * nd, N)
+                            .astype(np.int8))
+
+
+def _edge_acc64(rng, B, k1, N):
+    acc = rng.integers(0, 1 << 64, size=(B, k1, N), dtype=np.uint64)
+    words = np.array([0, 1, (1 << 63) - 1, 1 << 63, (1 << 63) + 1,
+                      (1 << 64) - 1], np.uint64)
+    acc[:, 0, :6] = words
+    acc[:, -1, -6:] = words
+    acc[::2, :, N // 2 - 3:N // 2 + 3] = words
+    return acc
+
+
+def _edge_rotations(N, rng, extra):
+    edges = [0, 1, 15, 16, 17, N - 16, N - 1, N, N + 1, 2 * N - 16, 2 * N - 1]
+    return np.array(edges + list(rng.integers(0, 2 * N, size=extra)),
+                    np.int32)
+
+
+@pytest.mark.parametrize("name,N,S", [("nd1", 256, 128), ("nd3", 256, 256),
+                                      ("nd3", 2048, 1024), ("nd1", 2048, 128)])
+def test_stage1_64_twin_matches_plain(name, N, S):
+    """The replay of the redesigned ``stage1_64`` equals the plain
+    ``stage1_digits64`` at the edge rotations and random ones."""
+    params = dataclasses.replace(SETS[name], polynomial_size=N)
+    k1, l = params.glwe_dimension + 1, params.pbs_level
+    nd = t64.n_digit_limbs(params.pbs_base_log)
+    rng = np.random.default_rng(N + S)
+    a = _edge_rotations(N, rng, 1 if N > 256 else 3)
+    acc = _edge_acc64(rng, a.size, k1, N)
+    want = t64.stage1_digits64(params, _i64(acc), torch.from_numpy(a))
+    assert want.shape == (a.size, k1 * l * nd, N)
+    got = _stage1_64_twin(acc, a, l, params.pbs_base_log, nd, S)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("name", list(SETS))
+def test_plain_stage1_digits64_matches_jax(name):
+    """``pbs64.stage1_digits64`` equals JAX ``decompose64`` of X^a * acc -
+    acc, split by ``digit_limbs_i8``, at TEST_PARAMS_64 and base 2^23."""
+    params = SETS[name]
+    k1, N, l = params.glwe_dimension + 1, params.polynomial_size, params.pbs_level
+    bl, nd = params.pbs_base_log, t64.n_digit_limbs(params.pbs_base_log)
+    rng = np.random.default_rng(11)
+    a = _edge_rotations(N, rng, 2)
+    B = a.size
+    acc = _edge_acc64(rng, B, k1, N)
+    got = t64.stage1_digits64(params, _i64(acc), torch.from_numpy(a))
+    acc_t = _i64(acc)
+    diff = t64.negacyclic_rotate_batch64(acc_t, torch.from_numpy(a)) - acc_t
+    lo, hi = t64.split64_np(diff.numpy().view(np.uint64))
+    jd = j64.decompose64(jnp.asarray(lo), jnp.asarray(hi), bl, l)
+    jd = jnp.transpose(jd, (1, 2, 0, 3)).reshape(B, k1 * l, N)
+    want = np.stack([np.asarray(x) for x in j64.digit_limbs_i8(jd, nd)], 2)
+    assert np.array_equal(got.numpy(), want.reshape(B, k1 * l * nd, N))
+
+
+def test_stage1_digits64_wrapper_plain_on_cpu():
+    """On CPU tensors the wrapper is the plain pass and counts no launch;
+    another device raises."""
+    params = SETS["nd3"]
+    k1, N = params.glwe_dimension + 1, params.polynomial_size
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(_edge_rotations(N, rng, 0))
+    acc = _i64(_edge_acc64(rng, a.numel(), k1, N))
+    before = pbs_cuda.stage1_digits64.launches
+    got = pbs_cuda.stage1_digits64(params, acc, a)
+    assert torch.equal(got, t64.stage1_digits64(params, acc, a))
+    assert pbs_cuda.stage1_digits64.launches == before
+    meta = torch.empty((2, k1, N), dtype=torch.int64, device="meta")
+    with pytest.raises(ValueError, match="no stage1_64 kernel"):
+        pbs_cuda.stage1_digits64(params, meta, meta)
