@@ -68,7 +68,34 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
 11. 64-bit serving: ``has_match_many`` at TPU64_MESSAGE_2_CARRY_2 on
    ``cuda64-bg`` (multi-value plan), 8 contents, decrypt-checked; one
    multi-value ``has_match`` request on ``cuda64`` equal to ``torch64`` on
-   the card, and on ``cuda64-bg`` decrypt-checked.
+   the card, and on ``cuda64-bg`` decrypt-checked;
+12. the serving daemon at TPU_MESSAGE_2_CARRY_2 as its own process
+   (``python -m fhe_regex_tpu_torch.serve`` on the cached key's bsk and
+   ksk, log in ``.cache/serve_daemon.log``), warmed with the five
+   DRIVER_CONFIGS, north_star_hit and the serving configuration at
+   "many": 32; ``/health`` must name ``cuda-fused``; the six requests over
+   ``/match``, each bit-equal to in-process ``has_match`` on the plan the
+   daemon compiled; ``/match_many`` of the serving configuration three
+   times, bit-equal to ``has_match_many``; one patterns, positions,
+   ``/count`` and ``/match_long`` request; then ``/stats`` must count every
+   request and show watchdog EMAs of a "levels" and a "many" shape;
+   latencies over HTTP beside in-process ones; the daemon's own launch
+   counts (``/stats`` "kernel_launches", read just before and just after)
+   must show #3 launched by the six /match and by the /match_many;
+13. checkpoint and resume on the card: the serving configuration's
+   ``run_many`` (multi-value plan) checkpointed every step, killed in step
+   4, resumed; ``run`` on quantifiers checkpointed every 2 levels, killed
+   in level 6, resumed; both bit-equal to an uninterrupted run, and a
+   resume of another circuit refused by its fingerprint; one save's
+   seconds beside one launch step's; then the 64-bit daemon in this
+   process (``make_server(MatchService(sk64), port=0)`` on
+   ``cuda64-bg``): one ``/match`` bit-equal to ``has_match``, launching
+   #6;
+14. last, ``native/libfheregex.so`` (``make -C native`` if absent, and
+   removed again at the end, so the earlier phases of every run take the
+   compiler the checkout had: the engine is printed beside the latencies)
+   builds the Python builder's circuits, op for op, for the DRIVER_CONFIGS
+   and the serving configuration.
 
 Before each main path every launch count is set to 0; just after, the
 path's kernel must show launches.  Any failure raises.  The line before
@@ -87,9 +114,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import socket
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -316,11 +346,16 @@ def digits3(port, pbs_cuda, small64):
 
 
 def _reset_counts(pbs_cuda) -> None:
-    for k in (pbs_cuda.blind_rotate_fused, pbs_cuda.blind_rotate_fused_bg,
-              pbs_cuda.stage1_digits, pbs_cuda.external_product_step,
-              pbs_cuda.blind_rotate_fused64,
-              pbs_cuda.blind_rotate_fused64_bg):
+    for k in pbs_cuda.KERNELS:
         k.launches = 0
+
+
+def _engine() -> str:
+    """The circuit compiler the entry points take by default here (the
+    native one once ``native/libfheregex.so`` is built)."""
+    from fhe_regex_tpu_torch.regex.native import default_engine
+
+    return default_engine()
 
 
 def main_path(port, pbs_cuda, params, ck, sk, kernel, requests,
@@ -350,7 +385,7 @@ def main_path(port, pbs_cuda, params, ck, sk, kernel, requests,
         got, got2 = port.decrypt(ck, res), port.decrypt(ck, res2)
         print(f"request {params.name} {name}: {len(content)} chars, "
               f"{circuit.pbs_count} bootstraps in {len(circuit.levels)} "
-              f"levels, cold {cold:.3f} s, warm "
+              f"levels (engine {_engine()}), cold {cold:.3f} s, warm "
               f"{'not run' if warm_s is None else f'{warm_s:.3f} s'}, "
               f"{kernel.__name__} launches {launches}, result {got} "
               f"(want {want})", flush=True)
@@ -732,6 +767,406 @@ def serving64(port, pbs_cuda, params, ck, sk):
                pbs_cuda.blind_rotate_fused64, also="cuda64-bg")
 
 
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _http(url, path, obj=None):
+    """(reply, seconds) of one GET (``obj`` None) or JSON POST to a daemon
+    on this host."""
+    data = None if obj is None else json.dumps(obj).encode()
+    req = urllib.request.Request(url + path, data,
+                                 {"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=600) as r:
+        out = json.loads(r.read())
+    return out, time.perf_counter() - t0
+
+
+def _serve_request(port, url, ck, sk, request, kernel=None):
+    """One request of REQUESTS through the daemon's /match (fold "tree",
+    the client's encryption), decrypt-checked and bit-equal to in-process
+    ``has_match`` on the plan the daemon compiled (/compile: fewer
+    rotations than bootstraps is the multi-value plan).  Returns (HTTP
+    seconds, in-process seconds, multi-value, launches of ``kernel`` by
+    the /match of a daemon in this process)."""
+    from fhe_regex_tpu_torch.serve import decode_array, encode_array
+
+    name, pattern, content, want = request
+    ct = port.encrypt_str(ck, content)
+    stats, _ = _http(url, "/compile", {"pattern": pattern,
+                                       "content_len": len(content)})
+    mv = stats["rotations"] < stats["bootstraps"]
+    before = kernel.launches if kernel is not None else 0
+    out, http_s = _http(url, "/match", {"pattern": pattern, "fold": "tree",
+                                        "ct": encode_array(ct)})
+    launches = kernel.launches - before if kernel is not None else None
+    got = decode_array(out["ct"])
+    ref, local_s = _timed(lambda: port.has_match(
+        sk, ct, pattern, fold="tree", device=DEVICE, multivalue=mv))
+    _want_bits(port.decrypt(ck, got), want, f"daemon /match {name}")
+    if got.dtype != ref.dtype or not np.array_equal(got, ref):
+        raise AssertionError(f"daemon /match {name}: ciphertext differs "
+                             f"from in-process has_match")
+    return http_s, local_s, mv, launches
+
+
+def daemon(port, params, ck, sk):
+    """Phase 12: ``python -m fhe_regex_tpu_torch.serve`` as its own process
+    on the 32-bit production key (bsk and ksk of the key cache; the client
+    key stays here), warmed with the five DRIVER_CONFIGS, north_star_hit
+    and the serving configuration at "many": 32.  Every answer is
+    decrypt-checked and the /match ciphertexts are bit-equal to in-process
+    ``has_match``, /match_many's to ``has_match_many``."""
+    from fhe_regex_tpu_torch.models.patterns import DRIVER_CONFIGS
+    from fhe_regex_tpu_torch.ops.pbs import resolve_backend
+    from fhe_regex_tpu_torch.serve import decode_array, encode_array
+
+    manifest = ([{"pattern": c["pattern"], "content_len": c["content_len"]}
+                 for c in DRIVER_CONFIGS]
+                + [{"pattern": REQUESTS[5][1],
+                    "content_len": len(REQUESTS[5][2])},
+                   {"pattern": SERVE_PATTERN, "content_len": len(SERVE[0]),
+                    "many": len(SERVE)}])
+    man_path = CACHE / "serve_manifest.json"
+    man_path.write_text(json.dumps(manifest))
+    log_path = CACHE / "serve_daemon.log"
+    port_no = _free_port()
+    url = f"http://127.0.0.1:{port_no}"
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "fhe_regex_tpu_torch.serve", "--params",
+             params.name, "--key",
+             str(CACHE / f"torch_smoke_keys_{params.name}.npz"), "--device",
+             DEVICE, "--port", str(port_no), "--warmup", str(man_path)],
+            cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"daemon exited ({proc.returncode}) "
+                                     f"before serving")
+            try:
+                health, _ = _http(url, "/health")
+                break
+            except OSError:
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("daemon not up after 600 s")
+                time.sleep(0.5)
+        up_s = time.perf_counter() - t0
+        want_backend = resolve_backend(None, DEVICE, params)
+        if health != {"status": "ok", "params": params.name,
+                      "backend": want_backend}:
+            raise AssertionError(f"daemon /health {health}")
+        warm = [ln.split("INFO:fhe_regex_tpu_torch.serve:")[-1] for ln in
+                log_path.read_text().splitlines() if "warm" in ln]
+        print(f"daemon {params.name}: up in {up_s:.3f} s (process start, "
+              f"key load, warmup of {len(manifest)} shapes), /health "
+              f"backend {health['backend']}, engine {_engine()}; "
+              f"{'; '.join(warm)}", flush=True)
+
+        # the daemon's own launch counts (/stats), read just before and
+        # just after each part of its run: the 32-bit default is #3
+        def launched(before, what):
+            now = _http(url, "/stats")[0]["kernel_launches"]
+            diff = {k: now[k] - before[k] for k in now if now[k] > before[k]}
+            if diff.get("blind_rotate_fused", 0) <= 0:
+                raise AssertionError(f"daemon {what}: blind_rotate_fused was "
+                                     f"not launched (launches {diff})")
+            print(f"daemon {what}: launches {diff}", flush=True)
+            return now
+
+        counts0 = _http(url, "/stats")[0]["kernel_launches"]
+        for request in REQUESTS:
+            http_s, local_s, mv, _ = _serve_request(port, url, ck, sk,
+                                                    request)
+            print(f"daemon /match {request[0]}: {http_s:.4f} s over HTTP, "
+                  f"in-process has_match {local_s:.4f} s "
+                  f"({'multi-value' if mv else 'classic'} plan), equal "
+                  f"ciphertexts, right", flush=True)
+        counts0 = launched(counts0, f"/match x {len(REQUESTS)}")
+
+        C = len(SERVE)
+        cts = np.stack([port.encrypt_str(ck, c) for c in SERVE])
+        req = {"pattern": SERVE_PATTERN, "ct": encode_array(cts)}
+        body_mb = len(json.dumps(req)) / 1e6
+        many_s = []
+        for _ in range(3):
+            out, secs = _http(url, "/match_many", req)
+            many_s.append(secs)
+            got = decode_array(out["ct"])
+            _want_bits([port.decrypt(ck, x) for x in got],
+                       [1 - i % 2 for i in range(C)], "daemon /match_many")
+        counts0 = launched(counts0, "/match_many x 3")
+        local = [_timed(lambda: port.has_match_many(sk, cts, SERVE_PATTERN,
+                                                    device=DEVICE))
+                 for _ in range(2)]
+        if not np.array_equal(got, local[-1][0]):
+            raise AssertionError("daemon /match_many: ciphertexts differ "
+                                 "from in-process has_match_many")
+        warm_s = float(np.median(many_s[1:]))
+        print(f"daemon /match_many C={C} x {len(SERVE[0])} chars "
+              f"{SERVE_PATTERN}: request {body_mb:.2f} MB of JSON; "
+              f"{', '.join(f'{s:.4f}' for s in many_s)} s over HTTP, warm "
+              f"{C / warm_s:.2f} contents/s; in-process has_match_many "
+              f"{', '.join(f'{s:.4f}' for _, s in local)} s "
+              f"({C / local[-1][1]:.2f} contents/s); equal ciphertexts, all "
+              f"{C} bits right", flush=True)
+
+        checks = [
+            ("/match", {"patterns": ["/abc/", "/aqc/", "/^x{5}a/"],
+                        "ct": encode_array(cts[0])}, [1, 0, 1]),
+            ("/match", {"pattern": SERVE_PATTERN, "positions": True,
+                        "ct": encode_array(cts[0])},
+             [int(j == 5) for j in range(16)]),
+            ("/count", {"pattern": SERVE_PATTERN, "ct": encode_array(
+                port.encrypt_str(ck, "xxabcxxabcxxxabc"))}, 3),
+            ("/match_long", {"pattern": SERVE_PATTERN, "ct": encode_array(
+                port.encrypt_str(ck, "x" * 200 + "abc" + "x" * 53))}, 1)]
+        for path, body, want in checks:
+            out, secs = _http(url, path, body)
+            got = decode_array(out["ct"])
+            bits = (port.decrypt_count(ck, got) if path == "/count"
+                    else port.decrypt(ck, got) if got.ndim == 2
+                    else [port.decrypt(ck, x) for x in got])
+            _want_bits(bits, want, f"daemon {path} {sorted(body)}")
+            print(f"daemon {path} ({', '.join(k for k in body if k != 'ct')})"
+                  f": {secs:.4f} s, right", flush=True)
+
+        again = _serve_request(port, url, ck, sk, REQUESTS[0])[0]
+        stats, _ = _http(url, "/stats")
+        counts = {k: v["count"] for k, v in stats["requests"].items()}
+        want_counts = {"/compile": 7, "/match": 9, "/match_many": 3,
+                       "/count": 1, "/match_long": 1}
+        ema = stats["launch_ema_s"]
+        if counts != want_counts or not (
+                any(k.startswith("('levels'") for k in ema)
+                and any(k.startswith("('many'") for k in ema)):
+            raise AssertionError(f"daemon /stats: requests {counts} (want "
+                                 f"{want_counts}), launch_ema_s {ema}")
+        print(f"daemon /stats: requests {counts}; launch_ema_s {ema}; "
+              f"{REQUESTS[0][0]} again {again:.4f} s", flush=True)
+        if proc.poll() is not None:
+            raise AssertionError(f"daemon died ({proc.returncode})")
+    except BaseException:
+        sys.stderr.write(log_path.read_text()[-4000:])
+        raise
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30)
+
+
+def checkpoint_resume(port, params, ck, sk):
+    """Phase 13: the serving configuration's run_many (multi-value plan,
+    default backend) checkpointed every step and killed in step 4 (its
+    rotate core raises), resumed; ``run`` on quantifiers checkpointed every
+    2 levels and killed in level 6, resumed; both bit-equal to an
+    uninterrupted run.  A resume of another circuit must be refused by its
+    fingerprint.  Prints one save's seconds beside one launch step's."""
+    from fhe_regex_tpu_torch.regex.engine import compile_match
+    from fhe_regex_tpu_torch.regex.executor import (circuit_fingerprint,
+                                                    compile_circuit)
+    from fhe_regex_tpu_torch.utils import checkpoint as ckpt
+
+    ex = port.executor_for(sk, device=DEVICE)
+    wide = ex.device.type == "cuda"          # run_many's default
+    C = len(SERVE)
+    cts = np.stack([port.encrypt_str(ck, c) for c in SERVE])
+    circuit, _ = _serve_plan(port, params, sk, C)
+    steps = ex._device_chunks_many_mv(circuit, C, wide)
+    whole, whole_s = _timed(lambda: ex.run_many(circuit, cts))
+    path = CACHE / "ckpt_many.npz"
+    path.unlink(missing_ok=True)
+
+    def kill_after(attr, n):
+        """ex.<attr> raises RuntimeError("killed") from its (n+1)-th call
+        on; returns the undo."""
+        own, real, calls = attr in vars(ex), getattr(ex, attr), [0]
+
+        def dying(*a, **kw):
+            if calls[0] >= n:
+                raise RuntimeError("killed")
+            calls[0] += 1
+            return real(*a, **kw)
+        setattr(ex, attr, dying)
+        return ((lambda: setattr(ex, attr, real)) if own
+                else (lambda: delattr(ex, attr)))
+
+    undo = kill_after("_mv_rotate", sum(len(steps[i][0]) for i in range(3)))
+    try:
+        ex.run_many(circuit, cts, checkpoint=str(path), checkpoint_every=1)
+        raise AssertionError("run_many was not killed")
+    except RuntimeError as e:
+        if str(e) != "killed":
+            raise
+    finally:
+        undo()
+    words, step, ck_C, total = ckpt.load_many_slab(path)
+    if (step, ck_C, total) != (3, C, len(steps)):
+        raise AssertionError(f"run_many checkpoint at step {step} of {total}"
+                             f" (C={ck_C})")
+    resumed, resume_s = _timed(lambda: ex.run_many(circuit, cts,
+                                                   resume=str(path)))
+    if not np.array_equal(resumed, whole):
+        raise AssertionError("run_many resumed != uninterrupted")
+    # one save of this slab, timed from the device tensor as run_many
+    # saves it, and the other npz format of the same words
+    slab = ex._restore(words, C * circuit.num_slots)
+    fp = circuit_fingerprint(circuit, C, wide, len(steps))
+    _, save_s = _timed(lambda: ckpt.save_many_slab(
+        CACHE / "ckpt_save.npz", slab.cpu().numpy(), 3, C, total,
+        fingerprint=fp))
+    t0 = time.perf_counter()
+    np.savez(CACHE / "ckpt_plain.npz", slab=words)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.savez_compressed(CACHE / "ckpt_zip.npz", slab=words)
+    zip_s = time.perf_counter() - t0
+    other = port._compile_auto_mv(params, *compile_match(
+        len(SERVE[0]), "/abd/", fold="tree"), None)
+    if len(ex._device_chunks_many_mv(other, C, wide)) != len(steps):
+        raise AssertionError("/abd/ has another step count than /abc/")
+    try:
+        ex.run_many(other, cts, resume=str(path))
+        raise AssertionError("run_many resumed another circuit")
+    except ValueError as e:
+        if "fingerprint" not in str(e):
+            raise
+    print(f"checkpoint run_many C={C} (multi-value plan, {len(steps)} "
+          f"steps): killed in step 4, resumed from step {step}: equal to "
+          f"the uninterrupted run ({whole_s:.3f} s, {whole_s / len(steps):.3f}"
+          f" s a step; resume {resume_s:.3f} s); one save "
+          f"{save_s:.3f} s (save_many_slab from the device tensor, "
+          f"{words.nbytes / 1e6:.1f} MB slab; of its words np.savez "
+          f"{plain_s:.3f} s, np.savez_compressed, the JAX module's format, "
+          f"{zip_s:.3f} s); /abd/ "
+          f"({len(steps)} steps) refused by its fingerprint", flush=True)
+
+    name, pattern, content, want = REQUESTS[3]
+    ct = port.encrypt_str(ck, content)
+    circuit = compile_circuit(params, *compile_match(len(content), pattern,
+                                                     fold="tree"))
+    whole, whole_s = _timed(lambda: ex.run(circuit, ct))
+    path = CACHE / "ckpt_run.npz"
+    path.unlink(missing_ok=True)
+    undo = kill_after("_run_level", 5)
+    try:
+        ex.run(circuit, ct, checkpoint=str(path), checkpoint_every=2)
+        raise AssertionError("run was not killed")
+    except RuntimeError as e:
+        if str(e) != "killed":
+            raise
+    finally:
+        undo()
+    level = ckpt.load_slab(path)[1]
+    resumed, resume_s = _timed(lambda: ex.run(circuit, None,
+                                              resume=str(path)))
+    _want_bits(port.decrypt(ck, resumed), want, f"{name} resumed")
+    if level != 4 or not np.array_equal(resumed, whole):
+        raise AssertionError(f"{name}: resumed from level {level} != "
+                             f"uninterrupted")
+    other = compile_circuit(params, *compile_match(len(content),
+                                                   "/^ab{2,4}c+e*$/",
+                                                   fold="tree"))
+    try:
+        ex.run(other, None, resume=str(path))
+        raise AssertionError("run resumed another circuit")
+    except ValueError as e:
+        if "fingerprint" not in str(e):
+            raise
+    print(f"checkpoint run {name} ({len(circuit.levels)} levels, every 2): "
+          f"killed in level 6, resumed from level {level}: equal to the "
+          f"uninterrupted run ({whole_s:.3f} s; resume {resume_s:.3f} s), "
+          f"right; another circuit refused by its fingerprint", flush=True)
+
+
+def native_equals_python():
+    """Phase 14, the last: ``native/libfheregex.so`` (built with ``make -C
+    native`` if absent, and then removed at the end, so that a later run's
+    entry points take the compiler this one's did) gives the Python
+    builder's circuit, op for op, for the five DRIVER_CONFIGS and the
+    serving configuration, in both folds."""
+    from fhe_regex_tpu_torch.models.patterns import DRIVER_CONFIGS
+    from fhe_regex_tpu_torch.regex import native
+    from fhe_regex_tpu_torch.regex.engine import compile_match
+
+    lib = ROOT / "native" / "libfheregex.so"
+    built = not lib.exists()
+    try:
+        _native_vs_python(native, compile_match, DRIVER_CONFIGS, built)
+    finally:
+        if built:
+            lib.unlink(missing_ok=True)
+
+
+def _native_vs_python(native, compile_match, configs, build):
+    build_s = 0.0
+    if build:
+        t0 = time.perf_counter()
+        subprocess.run(["make", "-C", str(ROOT / "native"), "libfheregex.so"],
+                       check=True, capture_output=True, timeout=600)
+        build_s = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError("native/libfheregex.so does not load")
+    cfgs = [(c["content_len"], c["pattern"]) for c in configs]
+    cfgs.append((len(SERVE[0]), SERVE_PATTERN))
+    py_s = nat_s = 0.0
+    for n, pattern in cfgs:
+        for fold in ("reference", "tree"):
+            t0 = time.perf_counter()
+            pb, proot = compile_match(n, pattern, fold=fold)
+            t1 = time.perf_counter()
+            nb, nroot = native.compile_match_native(n, pattern, fold=fold)
+            t2 = time.perf_counter()
+            py_s, nat_s = py_s + t1 - t0, nat_s + t2 - t1
+            if ((nb.ct_ops, nb.cache_hits, nb.num_content_slots)
+                    != (pb.ct_ops, pb.cache_hits, pb.num_content_slots)
+                    or nroot.val != proot.val or nb.ops != pb.ops):
+                raise AssertionError(f"native != python: {pattern} over {n} "
+                                     f"chars, fold {fold}")
+    print(f"native circuit compiler (make {build_s:.1f} s; 0 = built "
+          f"already{', removed after' if build else ''}): {len(cfgs)} "
+          f"configurations x 2 folds op for op equal to the Python builder; "
+          f"compile {nat_s:.4f} s native, {py_s:.4f} s python", flush=True)
+
+
+def daemon64(port, pbs_cuda, params, ck, sk):
+    """The 64-bit daemon in this process: ``make_server(MatchService(sk))``
+    in a thread, on the default backend ``cuda64-bg`` (#6); one /match of
+    exact_literal, bit-equal to in-process ``has_match``, launching #6."""
+    from fhe_regex_tpu_torch.serve import MatchService, make_server
+
+    srv = make_server(MatchService(sk), port=0)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    try:
+        url = f"http://127.0.0.1:{srv.server_address[1]}"
+        health, _ = _http(url, "/health")
+        if health["backend"] != "cuda64-bg":
+            raise AssertionError(f"64-bit daemon /health {health}")
+        _reset_counts(pbs_cuda)
+        http_s, local_s, _, launches = _serve_request(
+            port, url, ck, sk, REQUESTS[0],
+            kernel=pbs_cuda.blind_rotate_fused64_bg)
+        if launches <= 0:
+            raise AssertionError("64-bit daemon: blind_rotate_fused64_bg was "
+                                 "not launched")
+        print(f"daemon {params.name} (in process, cuda64-bg) /match "
+              f"{REQUESTS[0][0]}: {http_s:.4f} s over HTTP (cold), in-process"
+              f" {local_s:.4f} s, equal ciphertexts, right; "
+              f"blind_rotate_fused64_bg launches {launches}", flush=True)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        th.join(timeout=30)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -754,8 +1189,8 @@ def main() -> int:
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     kind = torch.cuda.get_device_name(0)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}",
-          flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {kind}; "
+          f"circuit compiler {_engine()}", flush=True)
 
     _, build_s = _timed(pbs_cuda.build)
     print(f"kernel build {build_s:.1f} s ({pbs_cuda.library_path().name})",
@@ -921,6 +1356,18 @@ def main() -> int:
 
     # ---- phase 11: the serving path, 64 bits ----
     serving64(port, pbs_cuda, full64, ck64, sk64)
+
+    # ---- phase 12: the daemon, 32 bits, as its own process ----
+    daemon(port, full, ck, sk)
+
+    # ---- phase 13: checkpoint and resume on the card ----
+    checkpoint_resume(port, full, ck, sk)
+
+    # ---- the 64-bit daemon, in this process ----
+    daemon64(port, pbs_cuda, full64, ck64, sk64)
+
+    # ---- phase 14: the native circuit compiler == the Python builder ----
+    native_equals_python()
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               library_ms=None):

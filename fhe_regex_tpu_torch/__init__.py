@@ -215,9 +215,31 @@ def executor_for(server_key: ServerKey, backend: Optional[str] = None,
     return cache[key]
 
 
+def _native(engine: Optional[str]) -> bool:
+    """Whether ``engine`` selects the C++ circuit compiler
+    (native/circuit.cpp): 'native', or None when its library is built
+    (``regex.native.default_engine``); 'python' is regex/engine.py.  Both
+    give the same circuit, op for op."""
+    from fhe_regex_tpu_torch.regex.native import default_engine
+
+    return (engine or default_engine()) == "native"
+
+
+def _compile_single(params: Params, content_len: int, pattern: str,
+                    fold: str, engine: Optional[str],
+                    branch_budget: Optional[int]):
+    """(builder, root) of one pattern from the compiler ``engine`` picks."""
+    from fhe_regex_tpu_torch.regex.native import compile_match_native
+
+    compile_fn = compile_match_native if _native(engine) else compile_match
+    return compile_fn(content_len, pattern, num_blocks=params.num_blocks,
+                      fold=fold, branch_budget=branch_budget)
+
+
 def has_match(server_key: ServerKey, ct_content: np.ndarray, pattern: str,
               backend: Optional[str] = None,
               fold: str = "reference",
+              engine: Optional[str] = None,
               branch_budget: Optional[int] = None,
               device: "torch.device | str | None" = None,
               multivalue: Optional[bool] = None) -> np.ndarray:
@@ -230,15 +252,15 @@ def has_match(server_key: ServerKey, ct_content: np.ndarray, pattern: str,
     'cuda64-bg' kernels, None = the width's default kernel on CUDA
     devices, see ``ops.pbs.resolve_backend``); ``fold='tree'`` replaces the
     reference's sequential OR fold with a log-depth tree (same decrypted
-    result, far lower latency); ``branch_budget`` bounds variant expansion
-    with a clean BranchBudgetExceeded; ``multivalue=True`` shares blind
-    rotations between ops with the same input (default: the classic plan,
-    or FHE_REGEX_MULTIVALUE=1).
+    result, far lower latency); ``engine`` selects the circuit compiler
+    ('python' / 'native' C++ / None = native if built; both give the same
+    circuit); ``branch_budget`` bounds variant expansion with a clean
+    BranchBudgetExceeded; ``multivalue=True`` shares blind rotations
+    between ops with the same input (default: the classic plan, or
+    FHE_REGEX_MULTIVALUE=1).
     """
-    params = server_key.params
-    builder, root = compile_match(len(ct_content), pattern,
-                                  num_blocks=params.num_blocks, fold=fold,
-                                  branch_budget=branch_budget)
+    builder, root = _compile_single(server_key.params, len(ct_content),
+                                    pattern, fold, engine, branch_budget)
     circuit = _compile(server_key, builder, root, backend, device,
                        multivalue, packed=False)
     executor = executor_for(server_key, backend, device)
@@ -259,6 +281,7 @@ def _contents4(ct_contents) -> np.ndarray:
 
 def has_match_many(server_key: ServerKey, ct_contents, pattern: str,
                    backend: Optional[str] = None, fold: str = "tree",
+                   engine: Optional[str] = None,
                    branch_budget: Optional[int] = None,
                    wide_batch: Optional[bool] = None,
                    multivalue: Optional[bool] = None,
@@ -271,12 +294,11 @@ def has_match_many(server_key: ServerKey, ct_contents, pattern: str,
     launch width for big packed levels (default: on for CUDA).
     ``multivalue=None`` takes the multi-value plan when it saves at least
     ``MV_AUTO_MIN_SAVINGS`` of the rotations (``_compile_auto_mv``).
+    ``engine`` as in ``has_match``.
     """
-    params = server_key.params
     contents = _contents4(ct_contents)
-    builder, root = compile_match(contents.shape[1], pattern,
-                                  num_blocks=params.num_blocks, fold=fold,
-                                  branch_budget=branch_budget)
+    builder, root = _compile_single(server_key.params, contents.shape[1],
+                                    pattern, fold, engine, branch_budget)
     circuit = _compile(server_key, builder, root, backend, device,
                        multivalue, packed=True)
     executor = executor_for(server_key, backend, device)
@@ -311,24 +333,30 @@ def run_circuit(server_key: ServerKey, builder: CircuitBuilder, root,
 
 
 def _compile_multi(params: Params, content_len: int, patterns, fold: str,
-                   branch_budget: Optional[int]):
+                   engine: Optional[str], branch_budget: Optional[int]):
     from fhe_regex_tpu_torch.regex.engine import compile_match_multi
+    from fhe_regex_tpu_torch.regex.native import compile_match_native_multi
 
     patterns = list(patterns)
     if not patterns:
         raise ValueError("need at least one pattern")
-    return compile_match_multi(content_len, patterns,
-                               num_blocks=params.num_blocks, fold=fold,
-                               branch_budget=branch_budget)
+    compile_fn = (compile_match_native_multi if _native(engine)
+                  else compile_match_multi)
+    return compile_fn(content_len, patterns, num_blocks=params.num_blocks,
+                      fold=fold, branch_budget=branch_budget)
 
 
 def _compile_positions(params: Params, content_len: int, pattern: str,
-                       fold: str, branch_budget: Optional[int]):
+                       fold: str, engine: Optional[str],
+                       branch_budget: Optional[int]):
     from fhe_regex_tpu_torch.regex.engine import compile_match_positions
+    from fhe_regex_tpu_torch.regex.native import (
+        compile_match_native_positions)
 
-    return compile_match_positions(content_len, pattern,
-                                   num_blocks=params.num_blocks, fold=fold,
-                                   branch_budget=branch_budget)
+    compile_fn = (compile_match_native_positions if _native(engine)
+                  else compile_match_positions)
+    return compile_fn(content_len, pattern, num_blocks=params.num_blocks,
+                      fold=fold, branch_budget=branch_budget)
 
 
 def _run_roots(server_key, backend, device, multivalue, builder, roots,
@@ -365,7 +393,7 @@ def _run_roots_many(server_key, backend, device, multivalue, builder, roots,
 
 def has_match_patterns(server_key: ServerKey, ct_content: np.ndarray,
                        patterns, backend: Optional[str] = None,
-                       fold: str = "tree",
+                       fold: str = "tree", engine: Optional[str] = None,
                        branch_budget: Optional[int] = None,
                        multivalue: Optional[bool] = None,
                        device: "torch.device | str | None" = None
@@ -375,17 +403,17 @@ def has_match_patterns(server_key: ServerKey, ct_content: np.ndarray,
     All patterns share a single hash-consed op DAG, so subexpressions common
     across patterns are bootstrapped once.  Returns one radix ciphertext
     per pattern, `[P, num_blocks, n+1]`, in pattern order; decrypt each with
-    ``decrypt``.  ``multivalue`` as in ``has_match``.
+    ``decrypt``.  ``engine`` and ``multivalue`` as in ``has_match``.
     """
     builder, roots = _compile_multi(server_key.params, len(ct_content),
-                                    patterns, fold, branch_budget)
+                                    patterns, fold, engine, branch_budget)
     return _run_roots(server_key, backend, device, multivalue, builder,
                       roots, ct_content, "patterns")
 
 
 def has_match_positions(server_key: ServerKey, ct_content: np.ndarray,
                         pattern: str, backend: Optional[str] = None,
-                        fold: str = "tree",
+                        fold: str = "tree", engine: Optional[str] = None,
                         branch_budget: Optional[int] = None,
                         multivalue: Optional[bool] = None,
                         device: "torch.device | str | None" = None
@@ -393,16 +421,17 @@ def has_match_positions(server_key: ServerKey, ct_content: np.ndarray,
     """Per-offset encrypted match bits: result[i] encrypts 1 iff the pattern
     matches starting at content position i (``has_match``'s bit is their
     OR).  Returns `[len, num_blocks, n+1]`; decrypt each row with
-    ``decrypt``.  ``multivalue`` as in ``has_match``.
+    ``decrypt``.  ``engine`` and ``multivalue`` as in ``has_match``.
     """
     builder, roots = _compile_positions(server_key.params, len(ct_content),
-                                        pattern, fold, branch_budget)
+                                        pattern, fold, engine, branch_budget)
     return _run_roots(server_key, backend, device, multivalue, builder,
                       roots, ct_content, "positions")
 
 
 def has_match_many_patterns(server_key: ServerKey, ct_contents, patterns,
                             backend: Optional[str] = None, fold: str = "tree",
+                            engine: Optional[str] = None,
                             branch_budget: Optional[int] = None,
                             wide_batch: Optional[bool] = None,
                             multivalue: Optional[bool] = None,
@@ -410,11 +439,12 @@ def has_match_many_patterns(server_key: ServerKey, ct_contents, patterns,
                             ) -> np.ndarray:
     """Match MANY patterns against MANY equal-length encrypted contents:
     one compiled circuit, levels packed across contents.  Returns
-    `[C, P, num_blocks, n+1]`.  ``multivalue`` as in ``has_match_many``.
+    `[C, P, num_blocks, n+1]`.  ``engine`` and ``multivalue`` as in
+    ``has_match_many``.
     """
     contents = _contents4(ct_contents)
     builder, roots = _compile_multi(server_key.params, contents.shape[1],
-                                    patterns, fold, branch_budget)
+                                    patterns, fold, engine, branch_budget)
     return _run_roots_many(server_key, backend, device, multivalue, builder,
                            roots, contents, wide_batch, "patterns")
 
@@ -422,6 +452,7 @@ def has_match_many_patterns(server_key: ServerKey, ct_contents, patterns,
 def has_match_many_positions(server_key: ServerKey, ct_contents,
                              pattern: str, backend: Optional[str] = None,
                              fold: str = "tree",
+                             engine: Optional[str] = None,
                              branch_budget: Optional[int] = None,
                              wide_batch: Optional[bool] = None,
                              multivalue: Optional[bool] = None,
@@ -429,12 +460,12 @@ def has_match_many_positions(server_key: ServerKey, ct_contents,
                              ) -> np.ndarray:
     """Per-offset match bits for MANY equal-length encrypted contents: one
     compiled multi-root circuit, levels packed across contents.  Returns
-    ``[C, len, num_blocks, n+1]``.  ``multivalue`` as in
+    ``[C, len, num_blocks, n+1]``.  ``engine`` and ``multivalue`` as in
     ``has_match_many``.
     """
     contents = _contents4(ct_contents)
     builder, roots = _compile_positions(server_key.params, contents.shape[1],
-                                        pattern, fold, branch_budget)
+                                        pattern, fold, engine, branch_budget)
     return _run_roots_many(server_key, backend, device, multivalue, builder,
                            roots, contents, wide_batch, "positions")
 
@@ -515,6 +546,7 @@ def _long_plan(pattern: str, L: int):
 def has_match_long(server_key: ServerKey, ct_content: np.ndarray,
                    pattern: str, window: Optional[int] = None,
                    backend: Optional[str] = None, fold: str = "tree",
+                   engine: Optional[str] = None,
                    branch_budget: Optional[int] = None,
                    wide_batch: Optional[bool] = None,
                    multivalue: Optional[bool] = None,
@@ -528,8 +560,9 @@ def has_match_long(server_key: ServerKey, ct_content: np.ndarray,
     ``has_match`` on the full content.  Anchored patterns reduce to single
     flush windows (`^`: the first span+1 chars; `$`: the last span chars;
     both: trivial FALSE beyond the span); unbounded-span patterns fall back
-    to the direct circuit.  ``multivalue`` goes to ``has_match`` and
-    ``has_match_many`` as given (auto on the windows' packed run).
+    to the direct circuit.  ``engine`` and ``multivalue`` go to
+    ``has_match`` and ``has_match_many`` as given (multivalue: auto on the
+    windows' packed run).
     """
     params = server_key.params
     content = np.ascontiguousarray(ct_content)
@@ -538,8 +571,8 @@ def has_match_long(server_key: ServerKey, ct_content: np.ndarray,
 
     def direct(ct):
         return has_match(server_key, ct, pattern, backend=backend, fold=fold,
-                         branch_budget=branch_budget, device=device,
-                         multivalue=multivalue)
+                         engine=engine, branch_budget=branch_budget,
+                         device=device, multivalue=multivalue)
 
     if span is None or L == 0:
         return direct(content)
@@ -560,7 +593,8 @@ def has_match_long(server_key: ServerKey, ct_content: np.ndarray,
         return direct(content)
     wins = np.stack([content[a:a + W] for a in starts])
     bits = has_match_many(server_key, wins, pattern, backend=backend,
-                          fold=fold, branch_budget=branch_budget,
+                          fold=fold, engine=engine,
+                          branch_budget=branch_budget,
                           wide_batch=wide_batch, multivalue=multivalue,
                           device=device)
     logger.info("long content: %d chars -> %d windows of %d (span %d)",
@@ -571,6 +605,7 @@ def has_match_long(server_key: ServerKey, ct_content: np.ndarray,
 def has_match_many_long(server_key: ServerKey, ct_contents,
                         pattern: str, window: Optional[int] = None,
                         backend: Optional[str] = None, fold: str = "tree",
+                        engine: Optional[str] = None,
                         branch_budget: Optional[int] = None,
                         wide_batch: Optional[bool] = None,
                         multivalue: Optional[bool] = None,
@@ -582,7 +617,8 @@ def has_match_many_long(server_key: ServerKey, ct_contents,
     pack into ONE ``run_many`` batch, then each document's window bits
     OR-reduce.  Returns ``[C, num_blocks, n+1]``.  Anchored / unbounded-span
     patterns reduce to one batched ``has_match_many`` over the (possibly
-    trimmed) documents.  ``multivalue`` as in ``has_match_many``.
+    trimmed) documents.  ``engine`` and ``multivalue`` as in
+    ``has_match_many``.
     """
     params = server_key.params
     contents = _contents4(ct_contents)
@@ -591,7 +627,8 @@ def has_match_many_long(server_key: ServerKey, ct_contents,
 
     def batched(cts):
         return has_match_many(server_key, cts, pattern, backend=backend,
-                              fold=fold, branch_budget=branch_budget,
+                              fold=fold, engine=engine,
+                              branch_budget=branch_budget,
                               wide_batch=wide_batch, multivalue=multivalue,
                               device=device)
 
@@ -635,8 +672,9 @@ def count_matches(server_key: ServerKey, ct_content: np.ndarray,
     from fhe_regex_tpu_torch.regex.circuit import count_bits
 
     params = server_key.params
+    # the Python builder: count_bits appends its adder ops to it
     builder, roots = _compile_positions(params, len(ct_content), pattern,
-                                        fold, branch_budget)
+                                        fold, "python", branch_budget)
     digits = count_bits(builder, roots)
     digit_roots = [Node(("count", i), d) for i, d in enumerate(digits)]
     circuit = compile_circuit(params, builder, digit_roots,

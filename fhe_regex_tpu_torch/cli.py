@@ -4,7 +4,7 @@ Mirrors the reference binary (src/main.rs): pre-parses the pattern for an
 early error, then runs keygen -> encrypt -> has_match -> decrypt and prints
 ``res: 0|1`` (``--count``: the number of matching offsets; ``--positions``:
 one bit per start offset; ``--long``: windowed matching; ``--multivalue``:
-shared blind rotations).  Logging level via FHE_REGEX_LOG (analog of RUST_LOG,
+shared blind rotations; ``--engine``: the circuit compiler).  Logging level via FHE_REGEX_LOG (analog of RUST_LOG,
 main.rs:10-11); defaults to info.
 """
 
@@ -34,6 +34,8 @@ def main(argv=None) -> int:
     ap.add_argument("--fold", default="reference", choices=["reference", "tree"],
                     help="OR-fold order: reference (counter parity) or tree "
                          "(log-depth, lower latency)")
+    ap.add_argument("--engine", default=None, choices=["python", "native"],
+                    help="circuit compiler (default: native C++ if built)")
     ap.add_argument("--seed", type=int, default=None, help="keygen seed")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda; an error without a "
@@ -108,7 +110,7 @@ def main(argv=None) -> int:
             ct_res = count_matches(server_key, ct_content, args.pattern, **kw)
             print(f"count: {decrypt_count(client_key, ct_res)}")
             return 0
-        kw["multivalue"] = args.multivalue or None
+        kw.update(engine=args.engine, multivalue=args.multivalue or None)
         if args.positions:
             ct_res = has_match_positions(server_key, ct_content, args.pattern,
                                          **kw)

@@ -496,3 +496,13 @@ def stage1_digits64(params: Params, acc: torch.Tensor,
 
 
 stage1_digits64.launches = 0
+
+
+KERNELS = (blind_rotate_fused, blind_rotate_fused_bg, stage1_digits,
+           external_product_step, blind_rotate_fused64,
+           blind_rotate_fused64_bg, stage1_digits64)
+
+
+def launch_counts() -> dict:
+    """{wrapper name: launches} of every kernel wrapper of this module."""
+    return {k.__name__: k.launches for k in KERNELS}

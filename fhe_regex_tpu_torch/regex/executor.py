@@ -24,11 +24,17 @@ bits; ciphertexts cross the API as uint32 / uint64 numpy arrays.
 ``Executor.run_many`` is the serving path: one compiled circuit against C
 contents, every level's active bootstraps (or rotations) packed across the
 contents and cut into launches of the three widths of ``_chunk_sizes``.
+
+Both can checkpoint their slab (``utils/checkpoint.py``) and resume from
+it; a checkpoint carries the ``circuit_fingerprint`` of the plan that saved
+it, and a resume under any other plan is refused.  Every run feeds the
+executor's ``LaunchWatchdog`` (``utils/watchdog.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import os
 import time
@@ -45,6 +51,8 @@ from fhe_regex_tpu_torch.ops.mv import (make_mv_finish_core,
 from fhe_regex_tpu_torch.ops.pbs import I64, make_pbs_core, wrap_i32
 from fhe_regex_tpu_torch.params import Params
 from fhe_regex_tpu_torch.regex.circuit import BitVal, CircuitBuilder, Node, PbsOp
+from fhe_regex_tpu_torch.utils import checkpoint as _ckpt
+from fhe_regex_tpu_torch.utils.watchdog import LaunchWatchdog
 
 U32 = np.uint32
 
@@ -364,12 +372,50 @@ def _attach_mv_plan(params: Params, plan: LevelPlan, chunk, w: int,
     plan.mv_positions = tuple(int(pos[c]) for c in active_cols)
 
 
+def circuit_fingerprint(circuit: CompiledCircuit, *extra) -> str:
+    """sha256 (hex) of everything a slab's next levels depend on: the
+    params name, slot count, bootstrap and rotation counts, plan kind,
+    every level plan's arrays (the multi-value fields too), the LUT table
+    and the roots; ``extra`` appends more (``run_many``: C, wide_batch and
+    its step count).  Stable across processes (no salted ``hash()``)."""
+    h = hashlib.sha256()
+    h.update(repr((circuit.params.name, circuit.num_slots,
+                   circuit.pbs_count, circuit.rotation_count,
+                   circuit.multivalue,
+                   [(r.val.const, r.val.sign, r.val.slot)
+                    for r in circuit.all_roots]) + extra).encode())
+
+    def arr(a: np.ndarray) -> None:
+        a = np.ascontiguousarray(a)
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+
+    arr(circuit.luts)
+    for lv in circuit.levels:
+        for f in dataclasses.fields(lv):
+            v = getattr(lv, f.name)
+            if isinstance(v, np.ndarray):
+                arr(v)
+            else:
+                h.update(f"{f.name}={v!r}".encode())
+    return h.hexdigest()
+
+
+def _check_fingerprint(path, want: str) -> None:
+    got = _ckpt.load_fingerprint(path)
+    if got != want:
+        raise ValueError(f"{path}: checkpoint fingerprint {got} does not "
+                         f"match this plan's {want}: the slab was saved by "
+                         f"another circuit or plan, or without a fingerprint")
+
+
 class Executor:
     """Runs compiled circuits against one server key's device material."""
 
     def __init__(self, params: Params, dev_key):
         self.params = params
         self.device = dev_key.device
+        self.watchdog = LaunchWatchdog()
         self._dev_key = dev_key
         self._core = make_pbs_core(dev_key)
         self._mv_rotate = make_mv_rotate_core(dev_key)
@@ -570,8 +616,21 @@ class Executor:
         cache[key] = steps
         return steps
 
+    def _restore(self, words: np.ndarray, rows: int) -> torch.Tensor:
+        """A checkpointed slab (uint32 words; 64-bit words as limb pairs)
+        back on the device as this executor's [rows, n+1] slab."""
+        n1 = self.params.lwe_dimension + 1
+        a = np.ascontiguousarray(words).view(self._np_s).reshape(-1, n1)
+        if a.shape[0] != rows:
+            raise ValueError(f"checkpointed slab has {a.shape[0]} rows, this "
+                             f"plan needs {rows}")
+        return self._upload(a, self._dtype)
+
     def run_many(self, circuit: CompiledCircuit, contents: np.ndarray,
-                 wide_batch: "bool | None" = None) -> np.ndarray:
+                 wide_batch: "bool | None" = None,
+                 checkpoint: "str | None" = None,
+                 checkpoint_every: int = 0,
+                 resume: "str | None" = None) -> np.ndarray:
         """Match ONE compiled circuit against MANY encrypted contents.
 
         contents: [C, len, num_blocks, n+1] uint32 (uint64 at 64 bits) ->
@@ -582,37 +641,75 @@ class Executor:
         ``wide_batch`` adds the WIDE_LEVEL_BATCH launch width for big packed
         levels (default: on for a CUDA device, off elsewhere;
         FHE_REGEX_WIDE_BATCH=0|1 overrides).
+
+        checkpoint/resume: with ``checkpoint`` + ``checkpoint_every=k`` the
+        packed slab is saved every k launch steps while steps remain (a
+        step = one classic chunk launch, or one multi-value rotations +
+        finish plan entry).  ``resume=path`` restores a saved slab and
+        replays only the remaining steps; ``contents`` then counts only for
+        its C.  The resume must use the same circuit, C and wide_batch: a
+        wrong C or step count is refused as in the JAX package, and so is
+        any other plan, by the ``circuit_fingerprint`` the checkpoint
+        carries.  The elapsed time of the whole call feeds
+        ``self.watchdog`` under ("many", C, pbs_count, num_slots,
+        multivalue, wide_batch).
         """
         self._check_plan(circuit)
+        t_run0 = time.perf_counter()
         if wide_batch is None:
             env = os.environ.get("FHE_REGEX_WIDE_BATCH")
             wide_batch = (env == "1" if env is not None
                           else self.device.type == "cuda")
+        wide_batch = bool(wide_batch)
         params = self.params
         C = contents.shape[0]
         n1 = params.lwe_dimension + 1
         S = circuit.num_slots
-        slab = torch.zeros((C * S, n1), dtype=self._dtype, device=self.device)
-        if contents.size:
-            flat = np.ascontiguousarray(contents.reshape(C, -1, n1),
-                                        dtype=self._np_u)
-            L = flat.shape[1]
-            rows = (np.arange(C)[:, None] * S + 1
-                    + np.arange(L)[None, :]).reshape(-1)
-            slab[self._upload(rows, I64)] = self._upload(
-                flat.reshape(C * L, n1).view(self._np_s), self._dtype)
-        if circuit.multivalue:
-            for rot_chunks, fin in self._device_chunks_many_mv(circuit, C,
-                                                               wide_batch):
+        mv = circuit.multivalue
+        steps = (self._device_chunks_many_mv(circuit, C, wide_batch) if mv
+                 else self._device_chunks_many(circuit, C, wide_batch))
+        saving = checkpoint is not None and checkpoint_every > 0
+        fp = (circuit_fingerprint(circuit, C, wide_batch, len(steps))
+              if saving or resume is not None else None)
+        start = 0
+        if resume is not None:
+            words, start, ck_C, ck_total = _ckpt.load_many_slab(resume)
+            if ck_C != C:
+                raise ValueError(
+                    f"resume checkpoint was taken at C={ck_C} contents, "
+                    f"got C={C} — the packed plan does not match")
+            if ck_total != len(steps):
+                raise ValueError(
+                    f"resume checkpoint recorded {ck_total} steps, this "
+                    f"plan has {len(steps)} — circuit/wide_batch mismatch")
+            _check_fingerprint(resume, fp)
+            slab = self._restore(words, C * S)
+        else:
+            slab = torch.zeros((C * S, n1), dtype=self._dtype,
+                               device=self.device)
+            if contents.size:
+                flat = np.ascontiguousarray(contents.reshape(C, -1, n1),
+                                            dtype=self._np_u)
+                L = flat.shape[1]
+                rows = (np.arange(C)[:, None] * S + 1
+                        + np.arange(L)[None, :]).reshape(-1)
+                slab[self._upload(rows, I64)] = self._upload(
+                    flat.reshape(C * L, n1).view(self._np_s), self._dtype)
+        luts = None if mv else self._device_plan(circuit)[0]
+        for si in range(start, len(steps)):
+            if mv:
+                rot_chunks, fin = steps[si]
                 accs = [self._mv_rotate(self._vlut, self._affine_combine(
                     slab[s], coefs, consts)) for s, coefs, consts in rot_chunks]
                 weights, leader, out_idx, positions = fin
                 slab[out_idx] = self._mv_finish(torch.cat(accs), weights,
                                                 leader, positions)
-        else:
-            luts, _ = self._device_plan(circuit)
-            for chunk in self._device_chunks_many(circuit, C, wide_batch):
-                self._run_level(slab, luts, *chunk)
+            else:
+                self._run_level(slab, luts, *steps[si])
+            if (saving and (si + 1) % checkpoint_every == 0
+                    and si + 1 < len(steps)):
+                _ckpt.save_many_slab(checkpoint, slab.cpu().numpy(), si + 1,
+                                     C, len(steps), fingerprint=fp)
         roots = circuit.all_roots
         slots = [r.val.slot for r in roots if r.val.sign != 0]
         if slots:
@@ -629,10 +726,17 @@ class Executor:
                     ct_u = got[ci, ri].view(self._np_u)
                     ri += 1
                 out[ci, pi] = _assemble_root(params, r.val, ct_u)
+        # the root download above waited for the device, so the time is
+        # the run's own (the JAX package's run_many feeds no watchdog)
+        self.watchdog.observe(("many", C, circuit.pbs_count, S, mv,
+                               wide_batch), time.perf_counter() - t_run0)
         return out[:, 0] if circuit.roots is None else out
 
-    def run(self, circuit: CompiledCircuit, content_blocks: np.ndarray,
-            profile: bool = False) -> np.ndarray:
+    def run(self, circuit: CompiledCircuit,
+            content_blocks: "np.ndarray | None",
+            profile: bool = False, checkpoint: "str | None" = None,
+            checkpoint_every: int = 0,
+            resume: "str | None" = None) -> np.ndarray:
         """content_blocks: [len, num_blocks, n+1] uint32 (uint64 at 64
         bits) -> radix result [num_blocks, n+1] of the same type
         ([R, num_blocks, n+1] for R roots).
@@ -640,19 +744,40 @@ class Executor:
         With profile=True each level is synchronized and timed; per-level
         stats land in ``self.last_run_stats`` (with the rotation batch of a
         multi-value level), and the failure-probability contract at this
-        key's operating point in ``self.last_run_pfail``."""
+        key's operating point in ``self.last_run_pfail``.
+
+        checkpoint/resume: with ``checkpoint`` + ``checkpoint_every=k`` the
+        slab is saved every k levels while levels remain; ``resume=path``
+        restores a saved slab and continues from its level
+        (``content_blocks`` is then ignored and may be None).  A checkpoint
+        carries the ``circuit_fingerprint`` of its circuit, and a resume of
+        any other circuit raises ValueError.
+
+        The elapsed time of the whole call feeds ``self.watchdog`` under
+        ("levels", pbs_count, num_slots, multivalue)."""
         self._check_plan(circuit)
+        t_run0 = time.perf_counter()
         n1 = self.params.lwe_dimension + 1
-        slab = torch.zeros((circuit.num_slots, n1), dtype=self._dtype,
-                           device=self.device)
-        if content_blocks.size:
-            flat = np.ascontiguousarray(content_blocks.reshape(-1, n1),
-                                        dtype=self._np_u)
-            slab[1:1 + flat.shape[0]] = torch.from_numpy(
-                flat.view(self._np_s)).to(self.device)
+        saving = checkpoint is not None and checkpoint_every > 0
+        fp = (circuit_fingerprint(circuit)
+              if saving or resume is not None else None)
+        start = 0
+        if resume is not None:
+            _check_fingerprint(resume, fp)
+            words, start = _ckpt.load_slab(resume)
+            slab = self._restore(words, circuit.num_slots)
+        else:
+            slab = torch.zeros((circuit.num_slots, n1), dtype=self._dtype,
+                               device=self.device)
+            if content_blocks.size:
+                flat = np.ascontiguousarray(content_blocks.reshape(-1, n1),
+                                            dtype=self._np_u)
+                slab[1:1 + flat.shape[0]] = torch.from_numpy(
+                    flat.view(self._np_s)).to(self.device)
         luts, levels = self._device_plan(circuit)
         stats = []
-        for lv, dev in zip(circuit.levels, levels):
+        for li in range(start, len(levels)):
+            lv, dev = circuit.levels[li], levels[li]
             t0 = time.perf_counter()
             if circuit.multivalue:
                 self._run_level_mv(slab, *dev)
@@ -667,11 +792,20 @@ class Executor:
                 if circuit.multivalue:
                     stat["rotations"] = int(lv.rot_slots.shape[0])
                 stats.append(stat)
+            if (saving and (li + 1) % checkpoint_every == 0
+                    and li + 1 < len(levels)):
+                _ckpt.save_slab(checkpoint, slab.cpu().numpy(), li + 1,
+                                fingerprint=fp)
         self.last_run_stats = stats
         if profile:
             self.last_run_pfail = circuit_pfail(
                 self.params, circuit, bsk_drop=_dev_key_drop(self._dev_key))
-        return self._finalize(circuit, slab)
+        out = self._finalize(circuit, slab)
+        # _finalize's download waited for the device: the time is real
+        self.watchdog.observe(("levels", circuit.pbs_count, circuit.num_slots,
+                               circuit.multivalue),
+                              time.perf_counter() - t_run0)
+        return out
 
     def _finalize(self, circuit: CompiledCircuit, slab) -> np.ndarray:
         """Single root -> [num_blocks, n+1]; multi-root -> [R, num_blocks, n+1].

@@ -3,7 +3,8 @@
 * The host modules it copies from the JAX package stay copies: the same
   code and docstrings, with only the package name changed (comments may be
   reworded), so the two cannot drift.
-* Importing and running the port loads neither jax nor fhe_regex_tpu.
+* Importing and running the port, its serving daemon included, loads
+  neither jax nor fhe_regex_tpu.
 * chip_smoke.py has no CPU fallback: without a CUDA device, and alone in
   a directory, it exits non-zero at once and prints no result.
 * The CLI and the kernel build helper behave on a machine without CUDA.
@@ -37,6 +38,11 @@ COPIED = [
     "regex/parser.py",
     "regex/circuit.py",
     "regex/engine.py",
+    "regex/native.py",
+    "utils/__init__.py",
+    "utils/watchdog.py",
+    "models/__init__.py",
+    "models/patterns.py",
 ]
 
 
@@ -53,6 +59,8 @@ def test_copied_module_equals_original(rel):
     original = (ROOT / "fhe_regex_tpu" / rel).read_text()
     copy = (PORT / rel).read_text()
     renamed = original.replace("fhe_regex_tpu.", "fhe_regex_tpu_torch.")
+    renamed = renamed.replace("from fhe_regex_tpu import",
+                              "from fhe_regex_tpu_torch import")
     assert ast.dump(ast.parse(copy)) == ast.dump(ast.parse(renamed))
     assert copy.count("\n") == renamed.count("\n")
 
@@ -80,6 +88,7 @@ def test_port_runs_without_jax(tmp_path):
         "ck, sk = gen_keys(get_params('TEST_PARAMS_64'), seed=3)\n"
         "res = has_match(sk, encrypt_str(ck, 'xaby'), '/ab/', device='cpu')\n"
         "assert res.dtype.name == 'uint64' and decrypt(ck, res) == 1\n"
+        "import fhe_regex_tpu_torch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax'\n"
         "             or m.startswith('jax.') or m == 'fhe_regex_tpu'\n"
         "             or m.startswith('fhe_regex_tpu.'))\n"
