@@ -38,8 +38,14 @@ inside one rotation of each width (``torch.profiler``), and that
 rotation's step timeline (``step_timeline``); and the
 registers and spills of each kernel of ``csrc/blind_rotate.cu`` and
 ``csrc/blind_rotate64.cu`` as ``nvcc -Xptxas -v`` reports them (one more
-compile of each source).  The last line is a JSON object with these
-numbers.
+compile of each source).
+
+Last, one warm ``fft`` blind rotation (``ops/pbs_fft.py``) at B = 8 and
+256 under ``torch.profiler``: wall and device-busy time, the idle share, the device
+ops per CMUX step by name (cuFFT kernels, the batched complex GEMM,
+elementwise kernels, copies) and the launches per step.  The idle share
+separates the host's dispatch of the eager step loop from device time.
+The last line is a JSON object with these numbers.
 """
 
 from __future__ import annotations
@@ -284,6 +290,46 @@ def ptxas_report() -> list:
     return out
 
 
+def fft_rotation(params, sk) -> dict:
+    """One warm ``fft`` rotation at B = 8 and 256 under torch.profiler, on
+    random mod-switched inputs: wall, busy, idle share, device ops per
+    step by name and launches per step."""
+    import chip_smoke as smoke
+    from fhe_regex_tpu_torch.ops.pbs import prepare_server_key, rotation_fn
+
+    dev = smoke.DEVICE
+    dk = prepare_server_key(params, sk, dev, "fft")
+    rotate = rotation_fn(dk)
+    N, n = params.polynomial_size, params.lwe_dimension
+    gen = torch.Generator().manual_seed(7)
+    luts = torch.randint(-2**31, 2**31, (1, N), generator=gen,
+                         dtype=torch.int64).to(dev, torch.int32)
+    out = {}
+    for B in (8, 256):
+        ms = torch.randint(0, 2 * N, (B, n + 1), generator=gen,
+                           dtype=torch.int32).to(dev)
+        idx = torch.zeros(B, dtype=torch.int32, device=dev)
+        wall, events = _traced(f"fft rotation B={B}",
+                               lambda: rotate(luts, idx, ms))
+        busy = busy_us(events) / 1e6
+        per_step = defaultdict(lambda: {"launches": 0.0, "us": 0.0})
+        for k, (t, c) in sorted(by_kernel(events).items(),
+                                key=lambda kv: -kv[1][0]):
+            per_step[short_name(k)]["launches"] += c / n
+            per_step[short_name(k)]["us"] += t * 1e3 / n
+        launches = sum(row["launches"] for row in per_step.values())
+        out[B] = {"wall_s": wall, "busy_s": busy,
+                  "idle_share": 1 - busy / wall,
+                  "launches_per_step": launches, "per_step": per_step}
+        print(f"fft rotation {params.name} B={B}: wall {wall:.3f} s, device busy {busy:.3f} s, idle "
+              f"share {1 - busy / wall:.3f}, {launches:.1f} device ops a "
+              f"step", flush=True)
+        for name, row in per_step.items():
+            print(f"  {name[:60]:60s} {row['launches']:5.2f} a step "
+                  f"{row['us']:9.2f} us a step", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA device; this script runs "
@@ -337,8 +383,10 @@ def main() -> int:
         sk_w = smoke._keys(get_params(name))[1]
         table[name] = widths(get_params(name), sk_w)
         digits[name] = digit_pass(get_params(name), sk_w)
+    ptxas = ptxas_report()
+    fft = fft_rotation(params, sk)
     print(json.dumps({"device": smi, "runs": runs, "widths": table,
-                      "digit_pass": digits, "ptxas": ptxas_report()}))
+                      "digit_pass": digits, "ptxas": ptxas, "fft": fft}))
     return 0
 
 

@@ -91,14 +91,30 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    process (``make_server(MatchService(sk64), port=0)`` on
    ``cuda64-bg``): one ``/match`` bit-equal to ``has_match``, launching
    #6;
-14. last, ``native/libfheregex.so`` (``make -C native`` if absent, and
+14. the FFT backend (``fft``, ``ops/pbs_fft.py``: cuFFT through
+   ``torch.fft`` and a batched complex128 ``torch.matmul``, no kernel of
+   its own) at TPU_MESSAGE_2_CARRY_2: the spectral key (seconds and bytes
+   on the card); ``blind_rotate_fft`` at B = 8 and 256, cold and in three
+   warm calls, each bit-equal (tolerance zero: float64 rounds every limb
+   exactly) to ``cuda-fused`` on the same inputs, the warm calls timed
+   with CUDA events beside three of ``cuda-fused`` and beside
+   ``fft_rotation_bound``; the six requests through
+   ``has_match(backend="fft")``, each bit-equal to its phase-3
+   ``cuda-fused`` result; one decrypt-checked PBS batch at B = 256; the
+   serving configuration through ``has_match_many(backend="fft")``, on the
+   classic plan (asserted) and bit-equal to phase 10's classic
+   ``cuda-fused`` run; ``multivalue=True`` refused; no kernel of
+   ``ops/pbs_cuda.py`` launched by any of it.  A JSON line ``{"fft":
+   ...}`` precedes the kernels line;
+15. last, ``native/libfheregex.so`` (``make -C native`` if absent, and
    removed again at the end, so the earlier phases of every run take the
    compiler the checkout had: the engine is printed beside the latencies)
    builds the Python builder's circuits, op for op, for the DRIVER_CONFIGS
    and the serving configuration.
 
 Before each main path every launch count is set to 0; just after, the
-path's kernel must show launches.  Any failure raises.  The line before
+path's kernel must show launches (on the ``fft`` path: none).  Any failure
+raises.  The line before
 the last is a JSON object describing each kernel: its launches on its main
 path, its largest difference from the plain version, its time and the
 plain version's (and the library call's, where one computes the same
@@ -114,6 +130,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import socket
 import subprocess
 import sys
@@ -135,6 +152,8 @@ FULL64 = "TPU64_MESSAGE_2_CARRY_2"
 SMALL64 = "TEST_PARAMS_64"
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT8_OPS_PER_S = 1.979e15      # H100 SXM dense int8 tensor cores
+FP64_FLOPS_PER_S = 3.4e13      # H100 SXM float64 outside the tensor cores
+FP64_TC_FLOPS_PER_S = 6.7e13   # H100 SXM float64 tensor cores
 
 # benchmarks/serving.py: 32 contents of 16 characters, the odd ones with a
 # 'q' where the match needs its 'b'
@@ -278,9 +297,9 @@ def _graph_ms(fn, reps: int = 20, samples: int = 3) -> list:
     return times
 
 
-def _bound(ops: float, nbytes: float):
+def _bound(ops: float, nbytes: float, ops_per_s: float = INT8_OPS_PER_S):
     """(least ms for the work, what sets it) at the card's peaks."""
-    t_ops, t_bytes = ops / INT8_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    t_ops, t_bytes = ops / ops_per_s, nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
 
@@ -313,6 +332,30 @@ def rotation_bound(params, B: int, L: int, drop=(0, 0)):
     nbytes = (n * rows * k1 * N * word + B * (n + 2) * 4 + L * N * word
               + B * k1 * N * word)
     return _bound(2 * macs * limb_pairs(params, drop), nbytes)
+
+
+def fft_rotation_bound(params, B: int, L: int):
+    """Bound of one FFT blind rotation (``fft``) of B instances with L LUTs
+    on the limb plan ``PLAN`` (Lp limbs), in float64: per step (k+1)l B
+    forward and (k+1) Lp B inverse complex FFTs of length M = N/2 (5 M
+    log2 M flops each) at the FP64 rate outside the tensor cores, and the
+    contraction, (k+1)l (k+1) Lp M B complex multiply-adds (8 flops each,
+    a batched ZGEMM), at the FP64 tensor-core rate, n steps; or the
+    spectral key (complex128), the inputs and the output each moved once,
+    whichever takes longer."""
+    from fhe_regex_tpu_torch.ops.pbs_fft import PLAN
+
+    k1, N = params.glwe_dimension + 1, params.polynomial_size
+    n, rows, M = params.lwe_dimension, k1 * params.pbs_level, N // 2
+    Lp = len(PLAN)
+    t_fft = n * (rows + k1 * Lp) * B * 5 * M * math.log2(M) / FP64_FLOPS_PER_S
+    t_mm = n * 8 * rows * k1 * Lp * M * B / FP64_TC_FLOPS_PER_S
+    nbytes = (n * rows * k1 * Lp * M * 16 + B * (n + 2) * 4 + L * N * 4
+              + B * k1 * N * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return max(t_fft + t_mm, t_bytes) * 1e3, ("operations"
+                                              if t_fft + t_mm >= t_bytes
+                                              else "bytes")
 
 
 def digits3(port, pbs_cuda, small64):
@@ -419,6 +462,7 @@ def throughput(params, ck, sk, backend):
                              f"decrypt wrong")
     print(f"PBS batch {params.name} {backend} B=256: {secs:.3f} s, "
           f"{256 / secs:.1f} PBS/s, all decrypt", flush=True)
+    return 256 / secs
 
 
 def same_on_cpu(port, params, ck, sk):
@@ -656,7 +700,8 @@ def serving(port, pbs_cuda, params, ck, sk, literal):
     """Phase 10: the packed serving paths at the 32-bit production set;
     ``literal`` is (name, pattern, content, bit, ciphertext, cuda-fused
     result) of one request of phase 3.  Returns the launches of #4, #2 and
-    #1 on their main paths and the serving numbers."""
+    #1 on their main paths and the classic-plan run on ``cuda-fused``
+    (contents, results, seconds)."""
     C = len(SERVE)
     cts = np.stack([port.encrypt_str(ck, c) for c in SERVE])
     want = [1 - i % 2 for i in range(C)]
@@ -738,7 +783,7 @@ def serving(port, pbs_cuda, params, ck, sk, literal):
     print(f"request {params.name} {name} on cuda: {secs:.3f} s, equal to "
           f"cuda-fused; stage1_digits launches {s1}, external_product_step "
           f"launches {ep}", flush=True)
-    return bg_launches, s1, ep
+    return bg_launches, s1, ep, (cts, res4, classic_s)
 
 
 def serving64(port, pbs_cuda, params, ck, sk):
@@ -1086,8 +1131,111 @@ def checkpoint_resume(port, params, ck, sk):
           f"right; another circuit refused by its fingerprint", flush=True)
 
 
+def _event_ms(fn):
+    """(result, device ms) of one call of fn between two CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def fft_backend(port, pbs_cuda, params, ck, sk, dk, results, classic):
+    """Phase 14: the FFT backend at the 32-bit production set.  ``dk`` is
+    the ``cuda-fused`` key, ``results`` phase 3's {name: (ct, result)},
+    ``classic`` phase 10's classic-plan run (contents, results, seconds).
+    Returns the numbers of the ``{"fft": ...}`` line."""
+    from fhe_regex_tpu_torch.ops.pbs_fft import (blind_rotate_fft,
+                                                 prepare_bsk_fft)
+    from fhe_regex_tpu_torch.regex.engine import compile_match
+
+    spec, prep_s = _timed(lambda: prepare_bsk_fft(params, sk.bsk, DEVICE))
+    if spec.device.type != torch.device(DEVICE).type:
+        raise AssertionError(f"spectral key on {spec.device}")
+    prep = {"s": prep_s, "bytes": spec.numel() * 16}
+    print(f"fft key {params.name}: {prep_s:.3f} s (host float64 FFT + "
+          f"upload), {spec.numel() * 16 / 1e6:.1f} MB on the card", flush=True)
+    rotations = []
+    _reset_counts(pbs_cuda)
+    for B in (8, 256):
+        x = _rotation_inputs(params, ck, B, seed=900 + B)
+        args = (x["luts"], x["lut_idx"], x["ms"])
+        want = pbs_cuda.blind_rotate_fused(params, dk.bsk, *args)    # warm
+        fused_ms = [_event_ms(lambda: pbs_cuda.blind_rotate_fused(
+            params, dk.bsk, *args))[1] for _ in range(3)]
+        got, cold_s = _timed(lambda: blind_rotate_fft(params, spec, *args))
+        outs, ms = [got], []
+        for _ in range(3):
+            out, t = _event_ms(lambda: blind_rotate_fft(params, spec, *args))
+            outs.append(out)
+            ms.append(t)
+        err = max(_max_abs_err(o, want) for o in outs)
+        if not all(torch.equal(o, want) for o in outs):
+            raise AssertionError(f"blind_rotate_fft B={B} != cuda-fused "
+                                 f"(max |diff| {err})")
+        bound = fft_rotation_bound(params, B, x["luts"].shape[0])
+        rotations.append({"B": B, "ms": ms, "median_ms": float(np.median(ms)),
+                          "cold_ms": cold_s * 1e3, "bound_ms": bound[0],
+                          "bound_by": bound[1], "cuda_fused_ms": fused_ms,
+                          "max_abs_err": err})
+        print(f"blind_rotate_fft {params.name} B={B}: equal to cuda-fused "
+              f"(cold and 3 warm); warm ms {_fmt(ms)} (cuda-fused "
+              f"{_fmt(fused_ms)}); cold {cold_s * 1e3:.1f} ms; bound "
+              f"{bound[0]:.3f} ms ({bound[1]})", flush=True)
+    fused_launches = pbs_cuda.blind_rotate_fused.launches
+
+    _reset_counts(pbs_cuda)
+    for name, pattern, content, want_bit in REQUESTS:
+        ct, fused = results[name]
+        res, secs = _timed(lambda: port.has_match(
+            sk, ct, pattern, fold="tree", device=DEVICE, backend="fft"))
+        _want_bits(port.decrypt(ck, res), want_bit, f"{name} on fft")
+        if not np.array_equal(res, fused):
+            raise AssertionError(f"{name}: fft and cuda-fused results differ")
+        print(f"request {params.name} {name} on fft: {secs:.3f} s (the "
+              f"first includes the key's preparation), equal to cuda-fused",
+              flush=True)
+    pbs_s = throughput(params, ck, sk, "fft")
+
+    cts, classic_res, classic_s = classic
+    C = len(cts)
+    circuit = port._compile(sk, *compile_match(len(SERVE[0]), SERVE_PATTERN,
+                                               fold="tree"),
+                            "fft", DEVICE, None, packed=True)
+    if circuit.multivalue:
+        raise AssertionError("has_match_many on fft: the auto plan is "
+                             "multi-value")
+    res, serve_s = _timed(lambda: port.has_match_many(
+        sk, cts, SERVE_PATTERN, backend="fft", device=DEVICE))
+    _want_bits([port.decrypt(ck, r) for r in res],
+               [1 - i % 2 for i in range(C)], "has_match_many on fft")
+    if not np.array_equal(res, classic_res):
+        raise AssertionError("has_match_many on fft != classic cuda-fused")
+    try:
+        port.has_match_many(sk, cts[:2], SERVE_PATTERN, backend="fft",
+                            device=DEVICE, multivalue=True)
+        raise AssertionError("has_match_many(fft, multivalue=True) ran")
+    except ValueError as e:
+        if "not supported on 'fft'" not in str(e):
+            raise
+    launched = {k: v for k, v in pbs_cuda.launch_counts().items() if v}
+    if launched:
+        raise AssertionError(f"the fft path launched kernels {launched}")
+    print(f"serving {params.name} on fft: has_match_many C={C}, classic plan "
+          f"({circuit.pbs_count} bootstraps per content): {serve_s:.3f} s "
+          f"({C / serve_s:.2f} contents/s; classic cuda-fused "
+          f"{C / classic_s:.2f}), equal to cuda-fused, all bits right; "
+          f"multivalue=True refused; no kernel of ops/pbs_cuda.py launched "
+          f"(cuda-fused beside the rotations: {fused_launches})", flush=True)
+    return {"rotations": rotations, "key_prep": prep, "pbs_per_s": pbs_s,
+            "serving_contents_per_s": C / serve_s,
+            "serving_cuda_fused_classic_contents_per_s": C / classic_s}
+
+
 def native_equals_python():
-    """Phase 14, the last: ``native/libfheregex.so`` (built with ``make -C
+    """Phase 15, the last: ``native/libfheregex.so`` (built with ``make -C
     native`` if absent, and then removed at the end, so that a later run's
     entry points take the compiler this one's did) gives the Python
     builder's circuit, op for op, for the five DRIVER_CONFIGS and the
@@ -1350,7 +1498,7 @@ def main() -> int:
 
     # ---- phase 10: the serving path, 32 bits ----
     name, pattern, content, bit = REQUESTS[0]
-    bg_launches, s1_launches, ep_launches = serving(
+    bg_launches, s1_launches, ep_launches, classic = serving(
         port, pbs_cuda, full, ck, sk,
         (name, pattern, content, bit) + results[name])
 
@@ -1366,7 +1514,10 @@ def main() -> int:
     # ---- the 64-bit daemon, in this process ----
     daemon64(port, pbs_cuda, full64, ck64, sk64)
 
-    # ---- phase 14: the native circuit compiler == the Python builder ----
+    # ---- phase 14: the FFT backend ----
+    fft = fft_backend(port, pbs_cuda, full, ck, sk, dk, results, classic)
+
+    # ---- phase 15: the native circuit compiler == the Python builder ----
     native_equals_python()
 
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
@@ -1410,6 +1561,7 @@ def main() -> int:
         ("blind_rotate_fused64_bg", full64, drop))}
     print(f"bounds at B=8 (ms, by): {narrow}", flush=True)
     print(f"chip_smoke {time.perf_counter() - t_start:.1f} s", flush=True)
+    print(json.dumps({"fft": fft}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -44,6 +44,7 @@ from fhe_regex_tpu_torch.regex.executor import (MAX_LEVEL_BATCH,
                                                 active_bsk_drop,
                                                 compile_circuit,
                                                 default_min_bucket)
+from fhe_regex_tpu_torch.ops.mv import has_mv_rotation
 from fhe_regex_tpu_torch.ops.pbs import prepare_server_key, resolve_backend
 
 __all__ = [
@@ -157,14 +158,21 @@ def _compile_auto_mv(params: Params, builder, roots, multivalue, **kw):
 def _compile(server_key: ServerKey, builder, roots, backend, device,
              multivalue: Optional[bool], packed: bool) -> CompiledCircuit:
     """An entry point's circuit: the plan ``multivalue`` resolves to (auto
-    on the packed paths), its noise margin checked at the key drop of the
-    backend that will run it."""
+    on the packed paths, classic where the backend has no multi-value
+    rotation), its noise margin checked at the key drop of the backend
+    that will run it."""
     params = server_key.params
+    device = _resolve_device(device)
     kw = dict(min_bucket=default_min_bucket(),
-              bsk_drop=active_bsk_drop(params, backend,
-                                       _resolve_device(device)))
+              bsk_drop=active_bsk_drop(params, backend, device))
     mv = _resolve_multivalue(multivalue, packed)
     if packed:
+        # auto on a backend without a multi-value rotation (fft) is the
+        # classic plan; the JAX package compiles multi-value and then
+        # refuses to run it
+        if mv is None and not has_mv_rotation(
+                resolve_backend(backend, device, params)):
+            mv = False
         return _compile_auto_mv(params, builder, roots, mv, **kw)
     return compile_circuit(params, builder, roots, multivalue=mv, **kw)
 

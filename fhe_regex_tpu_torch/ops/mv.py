@@ -34,7 +34,8 @@ from fhe_regex_tpu_torch.ops.pbs import (DeviceServerKey, I32, I64,
 from fhe_regex_tpu_torch.params import Params
 
 # The JAX package's multi-value backends and their counterparts here (the
-# port runs multi-value on every backend it has, `cuda-bg` included).
+# port runs multi-value on every backend it has but `fft`, as JAX does not
+# on its `fft`; `cuda-bg` included).
 MV_BACKENDS = {
     "jnp": "torch",
     "pallas": "cuda",
@@ -118,8 +119,14 @@ def mv_extract64(params: Params, accs, weights, leader, positions=None):
                      pbs64.sample_extract64)
 
 
+def has_mv_rotation(backend: str) -> bool:
+    """Whether ``backend`` runs the multi-value plan; the packed paths'
+    auto choice takes the classic plan on one that does not."""
+    return backend in MV_BACKENDS.values()
+
+
 def _check_mv(dev_key: DeviceServerKey) -> None:
-    if dev_key.backend not in MV_BACKENDS.values():
+    if not has_mv_rotation(dev_key.backend):
         raise ValueError(
             f"multi-value bootstrap not supported on {dev_key.backend!r}")
 

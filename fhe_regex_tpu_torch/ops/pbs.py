@@ -29,13 +29,16 @@ Backends, named after the JAX package's:
                 ``cuda-bg``    the same over batch blocks (``pallas-bg``)
                 ``cuda``       one CUDA launch per CMUX stage, the step
                                loop in Python (``pallas``)
+                ``fft``        the float64 FFT formulation of
+                               ``ops/pbs_fft.py``, on any device (``fft``;
+                               classic plan only, no multi-value rotation)
   64-bit torus  ``torch64``    the plain path of ``ops/pbs64.py`` (``jnp64``)
                 ``cuda64``     the CUDA 64-bit blind rotation (``pallas64``)
                 ``cuda64-bg``  the same over batch blocks, on the key rounded
                                by ``default_drop64`` (``pallas64-bg``)
 
 The CUDA backends run only the blind rotation as a kernel and keep the
-rest of the pipeline in PyTorch.
+rest of the pipeline in PyTorch; ``fft`` keeps the exact keyswitch.
 """
 
 from __future__ import annotations
@@ -223,7 +226,7 @@ def key_switch(params: Params, ksk_f64: torch.Tensor,
 # ---------------- backend selection ----------------
 
 
-BACKENDS32 = ("torch", "cuda-fused", "cuda-bg", "cuda")
+BACKENDS32 = ("torch", "cuda-fused", "cuda-bg", "cuda", "fft")
 BACKENDS64 = ("torch64", "cuda64", "cuda64-bg")
 BACKENDS = BACKENDS32 + BACKENDS64
 CUDA_BACKENDS = ("cuda-fused", "cuda-bg", "cuda", "cuda64", "cuda64-bg")
@@ -235,7 +238,8 @@ class DeviceServerKey:
     ``bsk`` is the bootstrap key [n, (k+1)l, k+1, N], int32 at 32 bits and
     int64 at 64 bits (for ``cuda64-bg`` rounded by ``drop64``, see
     ``pbs64.round_bsk64``); ``ksk`` the float64 keyswitch matrix of
-    ``prepare_ksk`` / ``pbs64.prepare_ksk64``.
+    ``prepare_ksk`` / ``pbs64.prepare_ksk64``.  For ``fft``, ``bsk`` is
+    the key's complex128 spectrum (``pbs_fft.prepare_bsk_fft``).
     """
 
     def __init__(self, params: Params, backend: str, device: torch.device,
@@ -284,10 +288,15 @@ def prepare_server_key(params: Params, server_key,
             raise TypeError(f"{name} is {got}, expected {np.dtype(want)} "
                             f"for {params.name}")
     if params.torus_bits == 32:
-        bsk = torch.from_numpy(
-            np.ascontiguousarray(server_key.bsk).view(np.int32)).to(device)
         ksk = torch.from_numpy(
             np.ascontiguousarray(server_key.ksk).view(np.int32)).to(device)
+        if backend == "fft":
+            from fhe_regex_tpu_torch.ops.pbs_fft import prepare_bsk_fft
+
+            bsk = prepare_bsk_fft(params, server_key.bsk, device)
+        else:
+            bsk = torch.from_numpy(
+                np.ascontiguousarray(server_key.bsk).view(np.int32)).to(device)
         return DeviceServerKey(params, backend, device, bsk, prepare_ksk(ksk))
     drop = (0, 0)
     bsk = server_key.bsk
@@ -305,10 +314,13 @@ def rotation_fn(dev_key: DeviceServerKey):
     """The blind rotation of the key's backend on its bootstrap key,
     (luts, lut_idx, cts_ms) -> accumulators: the plain one, or a kernel
     wrapper of ``ops/pbs_cuda.py``.  ``cuda64-bg`` gets the key's
-    ``drop64``, the drop its key was rounded by."""
-    from fhe_regex_tpu_torch.ops import pbs_cuda
+    ``drop64``, the drop its key was rounded by; ``fft`` runs on its
+    spectral key."""
+    from fhe_regex_tpu_torch.ops import pbs_cuda, pbs_fft
+
     rotations = {
         "torch": blind_rotate,
+        "fft": pbs_fft.blind_rotate_fft,
         "cuda-fused": pbs_cuda.blind_rotate_fused,
         "cuda-bg": pbs_cuda.blind_rotate_fused_bg,
         "cuda": pbs_cuda.blind_rotate_steps,

@@ -34,6 +34,7 @@ executor's ``LaunchWatchdog`` (``utils/watchdog.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import math
 import os
@@ -418,8 +419,6 @@ class Executor:
         self.watchdog = LaunchWatchdog()
         self._dev_key = dev_key
         self._core = make_pbs_core(dev_key)
-        self._mv_rotate = make_mv_rotate_core(dev_key)
-        self._mv_finish = make_mv_finish_core(dev_key)
         self._vlut = mv_lut_table(params, self.device)
         self.last_run_stats: List[dict] = []
         self.last_run_pfail: "dict | None" = None
@@ -427,6 +426,17 @@ class Executor:
         self._dtype = I64 if wide else torch.int32
         self._np_u = np.uint64 if wide else U32       # the bits at the API
         self._np_s = np.int64 if wide else np.int32   # the same, as tensors
+
+    @functools.cached_property
+    def _mv_rotate(self):
+        """The multi-value rotate core, made at first use: on a backend
+        without a multi-value rotation (``fft``) a multi-value circuit
+        raises ValueError here, and the classic plan runs."""
+        return make_mv_rotate_core(self._dev_key)
+
+    @functools.cached_property
+    def _mv_finish(self):
+        return make_mv_finish_core(self._dev_key)
 
     def _affine_combine(self, gathered, in_coefs, consts):
         """sum_k coef_k * slab[slot_k] + const * delta over [W, 3, n+1].

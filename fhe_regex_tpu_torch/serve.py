@@ -76,12 +76,18 @@ class MatchService:
     def __init__(self, server_key, backend: Optional[str] = None,
                  device=None):
         from fhe_regex_tpu_torch import executor_for
+        from fhe_regex_tpu_torch.ops.mv import has_mv_rotation
+        from fhe_regex_tpu_torch.ops.pbs import resolve_backend
 
         self.server_key = server_key
         self.params = server_key.params
         self.backend = backend
         self.executor = executor_for(server_key, backend, device)
         self.device = self.executor.device
+        # a backend without a multi-value rotation (fft) serves the
+        # classic plan where a request leaves the plan to the daemon
+        self._auto_mv = has_mv_rotation(
+            resolve_backend(backend, self.device, self.params))
         self._lock = threading.Lock()      # one device, serialized matches
         self._programs: dict = {}
         # program construction/compilation is check-then-set on shared
@@ -145,6 +151,8 @@ class MatchService:
         multi = isinstance(pattern, (list, tuple))
         if multi and positions:
             raise ValueError("positions mode takes a single pattern")
+        if multivalue is None and not self._auto_mv:
+            multivalue = False
         key = (tuple(pattern) if multi else pattern, fold, branch_budget,
                multivalue, positions)
         with self._compile_lock:

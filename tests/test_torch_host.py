@@ -11,6 +11,7 @@
 """
 
 import ast
+import dataclasses
 import os
 import re
 import shutil
@@ -41,6 +42,8 @@ COPIED = [
     "regex/native.py",
     "utils/__init__.py",
     "utils/watchdog.py",
+    "utils/security.py",
+    "utils/metrics.py",
     "models/__init__.py",
     "models/patterns.py",
 ]
@@ -170,3 +173,34 @@ def test_chip_profile_busy_time_is_a_union():
 
     assert busy_us([ev(0, 10), ev(5, 12), ev(20, 30), ev(21, 22)]) == 22
     assert busy_us([]) == 0
+
+
+@pytest.mark.parametrize("name", ["TPU_MESSAGE_2_CARRY_2",
+                                  "REF_MESSAGE_2_CARRY_2_64",
+                                  "TPU64_MESSAGE_2_CARRY_2", "TEST_PARAMS",
+                                  "TEST_PARAMS_NOISY", "TEST_PARAMS_64"])
+def test_security_and_cost_models_equal_jax(name):
+    """The copied lattice estimate and cost models give the JAX package's
+    numbers at every named parameter set."""
+    from fhe_regex_tpu.params import get_params as jget
+    from fhe_regex_tpu.utils import metrics as jmetrics
+    from fhe_regex_tpu.utils import security as jsecurity
+
+    from fhe_regex_tpu_torch.params import get_params
+    from fhe_regex_tpu_torch.utils import metrics, security
+
+    def plain(d):
+        """The estimate with its dataclasses as dicts (the two packages'
+        classes never compare equal)."""
+        return {k: dataclasses.asdict(v) if dataclasses.is_dataclass(v)
+                else v for k, v in d.items()}
+
+    mine, theirs = get_params(name), jget(name)
+    assert (plain(security.estimate_params(mine))
+            == plain(jsecurity.estimate_params(theirs)))
+    for limbs in (1, 4):
+        assert (dataclasses.asdict(metrics.pbs_cost_model(mine, limbs))
+                == dataclasses.asdict(jmetrics.pbs_cost_model(theirs, limbs)))
+    for D, B, hosts in ((1, 256, 1), (4, 256, 1), (8, 1792, 2)):
+        assert (metrics.comm_model(mine, D, B, hosts=hosts)
+                == jmetrics.comm_model(theirs, D, B, hosts=hosts))

@@ -250,7 +250,11 @@ def test_mv_lut_table_and_backends():
                                   join64_np(want[..., 0], want[..., 1]))
     assert set(tmv.MV_BACKENDS) >= set(jmv.MV_BACKENDS)
     from fhe_regex_tpu_torch.ops.pbs import BACKENDS
-    assert sorted(tmv.MV_BACKENDS.values()) == sorted(BACKENDS)
+    # every backend but fft, which has no multi-value rotation in either
+    # package
+    assert "fft" not in jmv.MV_BACKENDS
+    assert sorted(tmv.MV_BACKENDS.values()) == sorted(
+        b for b in BACKENDS if b != "fft")
 
 
 def test_mv_pbs_batch_and_core_equal_jax(keys):
