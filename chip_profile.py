@@ -40,11 +40,17 @@ registers and spills of each kernel of ``csrc/blind_rotate.cu`` and
 ``csrc/blind_rotate64.cu`` as ``nvcc -Xptxas -v`` reports them (one more
 compile of each source).
 
-Last, one warm ``fft`` blind rotation (``ops/pbs_fft.py``) at B = 8 and
+Then one warm ``fft`` blind rotation (``ops/pbs_fft.py``) at B = 8 and
 256 under ``torch.profiler``: wall and device-busy time, the idle share, the device
 ops per CMUX step by name (cuFFT kernels, the batched complex GEMM,
 elementwise kernels, copies) and the launches per step.  The idle share
 separates the host's dispatch of the eager step loop from device time.
+
+Last, the tensor-parallel split (``tp_split``): one warm ``cuda-fused``
+bootstrap batch at B = 256 under ``torch.profiler``, its device time
+divided between the external product (which tensor parallelism divides
+over the ranks) and the rest (replicated on every rank);
+``utils/metrics.TP_PROFILE`` records one run of it.
 The last line is a JSON object with these numbers.
 """
 
@@ -330,6 +336,39 @@ def fft_rotation(params, sk) -> dict:
     return out
 
 
+def tp_split(params, sk, B: int = 256) -> dict:
+    """Device seconds of one warm ``cuda-fused`` bootstrap batch of B
+    random ciphertexts (``make_pbs_core``: mod switch, rotation, sample
+    extract, keyswitch) under torch.profiler: the ``ext_product`` launches
+    (divided over the ranks under tensor parallelism), and the rest of the
+    busy time (digit passes, accumulator set-up, extract, keyswitch:
+    replicated on every rank)."""
+    import chip_smoke as smoke
+    from fhe_regex_tpu_torch.ops.pbs import make_pbs_core, prepare_server_key
+
+    dev = smoke.DEVICE
+    core = make_pbs_core(prepare_server_key(params, sk, dev, "cuda-fused"))
+    N, n = params.polynomial_size, params.lwe_dimension
+    gen = torch.Generator().manual_seed(8)
+    luts = torch.randint(-2**31, 2**31, (1, N), generator=gen,
+                         dtype=torch.int64).to(dev, torch.int32)
+    cts = torch.randint(-2**31, 2**31, (B, n + 1), generator=gen,
+                        dtype=torch.int64).to(dev, torch.int32)
+    idx = torch.zeros(B, dtype=torch.int32, device=dev)
+    wall, events = _traced(f"tp split B={B}", lambda: core(luts, idx, cts))
+    busy = busy_us(events) / 1e6
+    ext = sum(e.time_range.end - e.time_range.start for e in events
+              if "ext_product" in e.name) / 1e6
+    out = {"B": B, "wall_s": wall, "ext_product_s": ext,
+           "glue_s": busy - ext, "total_s": busy,
+           "glue_fraction": (busy - ext) / busy}
+    print(f"tp split {params.name} cuda-fused B={B}: device busy {busy:.4f} "
+          f"s, ext_product {ext:.4f} s, the rest {busy - ext:.4f} s (glue "
+          f"fraction {(busy - ext) / busy:.4f}); wall {wall:.4f} s",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: no CUDA device; this script runs "
@@ -385,8 +424,10 @@ def main() -> int:
         digits[name] = digit_pass(get_params(name), sk_w)
     ptxas = ptxas_report()
     fft = fft_rotation(params, sk)
+    tp = tp_split(params, sk)
     print(json.dumps({"device": smi, "runs": runs, "widths": table,
-                      "digit_pass": digits, "ptxas": ptxas, "fft": fft}))
+                      "digit_pass": digits, "ptxas": ptxas, "fft": fft,
+                      "tp_split": tp}))
     return 0
 
 

@@ -106,11 +106,32 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    ``cuda-fused`` run; ``multivalue=True`` refused; no kernel of
    ``ops/pbs_cuda.py`` launched by any of it.  A JSON line ``{"fft":
    ...}`` precedes the kernels line;
-15. last, ``native/libfheregex.so`` (``make -C native`` if absent, and
+15. ``native/libfheregex.so`` (``make -C native`` if absent, and
    removed again at the end, so the earlier phases of every run take the
    compiler the checkout had: the engine is printed beside the latencies)
    builds the Python builder's circuits, op for op, for the DRIVER_CONFIGS
-   and the serving configuration.
+   and the serving configuration;
+16. last, the mesh on the card (``fhe_regex_tpu_torch.parallel``): a NCCL
+   process group of world 1 in this process (``multihost.initialize`` on
+   a free local port; one card holds one rank) and ``make_mesh(1)``:
+   (a) the six 32-bit requests through ``has_match(mesh=)``, each
+   bit-equal to its phase-3 result, warm latency beside phase 3's; (b)
+   the serving configuration through ``executor_for(mesh=).run_many`` on
+   the multi-value plan (``cuda-bg``) and the classic plan
+   (``cuda-fused``), bit-equal to phase 10, contents/s beside phase 10's;
+   (c) one 64-bit request on ``cuda64-bg``, bit-equal to phase 6; (d)
+   ``make_tp_pbs_fn`` on ``make_tp_mesh(1)`` at B = 8 and 256, bit-equal
+   to ``cuda-fused``'s bootstrap of the same batch, 866 launches each of
+   ``stage1_digits`` (#2) and ``external_product_rows`` (#1's device code
+   over a block of the digit rows) a call, ms per batch beside
+   ``cuda-fused``'s, device busy time and idle share profiled; the
+   row-block entry against its plain version, tolerance zero, at B = 8 and
+   256 and R = 6, 3, 2, 1 rows (the blocks of D = 1, 2, 3, 6, cut by
+   slicing), its blocks summing to the whole step, timed at R = 6 and 3;
+   (e) ``or_tree_across_devices`` at world 1 on an encrypted 1 and an
+   encrypted 0, each decrypting to itself; (f) ``dryrun_multichip(1)`` on
+   phase 2's keys.  A JSON line ``{"mesh": ...}`` precedes the kernels
+   line.
 
 Before each main path every launch count is set to 0; just after, the
 path's kernel must show launches (on the ``fft`` path: none).  Any failure
@@ -118,8 +139,9 @@ raises.  The line before
 the last is a JSON object describing each kernel: its launches on its main
 path, its largest difference from the plain version, its time and the
 plain version's (and the library call's, where one computes the same
-function) at one shape of the run (B = 256; #1 and #2 per launch, from
-``_graph_ms``), and the least time the card could take
+function) at one shape of the run (B = 256; #1, its row-block entry at
+R = 6 and #2 per launch, from ``_graph_ms``), and the least time the card
+could take
 for that work (``bound_ms``: the int8 tensor-core operations of the limb
 formulation at 1,979 TOP/s, or the bytes at 3.35 TB/s, whichever is
 larger; the H100 SXM data sheet's peaks).  The last line is
@@ -402,11 +424,11 @@ def _engine() -> str:
 
 
 def main_path(port, pbs_cuda, params, ck, sk, kernel, requests,
-              backend=None, warm=True):
+              backend=None, warm=True, times=None):
     """The requests through ``has_match`` on the card, each decrypting to
     its expected bit, cold and (with ``warm``) warm; every launch count is
     0 just before.  Returns (launches of ``kernel`` in this run,
-    {name: (ct, result)})."""
+    {name: (ct, result)}); ``times`` gets {name: warm seconds}."""
     from fhe_regex_tpu_torch.regex.engine import compile_match
     from fhe_regex_tpu_torch.regex.executor import compile_circuit
 
@@ -440,6 +462,8 @@ def main_path(port, pbs_cuda, params, ck, sk, kernel, requests,
         if res.dtype != dt:
             raise AssertionError(f"{name}: result dtype {res.dtype}")
         results[name] = (ct, res)
+        if times is not None:
+            times[name] = warm_s
     return kernel.launches, results
 
 
@@ -700,8 +724,9 @@ def serving(port, pbs_cuda, params, ck, sk, literal):
     """Phase 10: the packed serving paths at the 32-bit production set;
     ``literal`` is (name, pattern, content, bit, ciphertext, cuda-fused
     result) of one request of phase 3.  Returns the launches of #4, #2 and
-    #1 on their main paths and the classic-plan run on ``cuda-fused``
-    (contents, results, seconds)."""
+    #1 on their main paths, the classic-plan run on ``cuda-fused``
+    (contents, results, seconds) and the warm multi-value run on
+    ``cuda-bg`` (results, seconds)."""
     C = len(SERVE)
     cts = np.stack([port.encrypt_str(ck, c) for c in SERVE])
     want = [1 - i % 2 for i in range(C)]
@@ -783,7 +808,7 @@ def serving(port, pbs_cuda, params, ck, sk, literal):
     print(f"request {params.name} {name} on cuda: {secs:.3f} s, equal to "
           f"cuda-fused; stage1_digits launches {s1}, external_product_step "
           f"launches {ep}", flush=True)
-    return bg_launches, s1, ep, (cts, res4, classic_s)
+    return bg_launches, s1, ep, (cts, res4, classic_s), (res2, warm)
 
 
 def serving64(port, pbs_cuda, params, ck, sk):
@@ -1315,6 +1340,266 @@ def daemon64(port, pbs_cuda, params, ck, sk):
         th.join(timeout=30)
 
 
+def rows_vs_plain(params, bsk, pbs_cuda, plain):
+    """Phase 16, the row-block entry of #1 (``external_product_rows``, the
+    step of tensor parallelism) against its plain version on the same card
+    inputs, tolerance zero: at B = 8 and 256, every block of R = 6, 3, 2
+    and 1 of the 6 digit rows (what a rank holds at D = 1, 2, 3, 6, cut
+    here by slicing at D = 1), on a zero and on a random accumulator; the
+    blocks of each R sum mod 2^32 to the whole step.  Timed per launch at
+    R = 6 (the TP path at D = 1) and 3, B = 8 and 256 (``_graph_ms``),
+    beside the plain version and one float64 ``torch.matmul`` on the
+    block's Toeplitz matrix.  Returns (largest difference, {(B, R): ms})."""
+    k1, N = params.glwe_dimension + 1, params.polynomial_size
+    rows = k1 * params.pbs_level
+    err, out = 0, {}
+    for B in (8, 256):
+        acc, a = _digit_inputs(params, B, 1700 + B)
+        d = pbs_cuda.stage1_digits(params, acc, a)
+        zero = torch.zeros_like(acc)
+        whole = plain.external_product_step(params, d, bsk[0], acc)
+        for R in (6, 3, 2, 1):
+            total = acc.to(torch.int64)
+            for r0 in range(0, rows, R):
+                blk, g = d[:, r0:r0 + R].contiguous(), bsk[0][r0:r0 + R]
+                for base in (zero, acc):
+                    got = pbs_cuda.external_product_rows(params, blk, g, base)
+                    want = plain.external_product_step(params, blk, g, base)
+                    err = max(err, _max_abs_err(got, want))
+                    if not torch.equal(got, want):
+                        raise AssertionError(
+                            f"external_product_rows B={B} R={R} r0={r0}: "
+                            f"kernel != plain (max |diff| {err})")
+                    if base is zero:
+                        total += got.to(torch.int64)
+            if not torch.equal(plain.wrap_i32(total), whole):
+                raise AssertionError(f"external_product_rows B={B} R={R}: "
+                                     f"the blocks do not sum to the step")
+        for R in (6, 3):
+            blk, g = d[:, :R].contiguous(), bsk[0][:R]
+            W = plain._ext_product_matrix(g)
+            df = blk.reshape(B, R * N).to(torch.float64)
+            t = dict(
+                ms=_graph_ms(lambda: pbs_cuda.external_product_rows(
+                    params, blk, g, zero)),
+                plain=_graph_ms(lambda: plain.external_product_step(
+                    params, blk, g, zero), reps=3),
+                lib=_graph_ms(lambda: torch.matmul(df, W), reps=3))
+            print(f"external_product_rows {params.name} B={B} R={R}: device "
+                  f"ms per launch (CUDA graph) {_fmt(t['ms'])}, plain "
+                  f"{_fmt(t['plain'])}, float64 matmul {_fmt(t['lib'])}",
+                  flush=True)
+            out[B, R] = {k: float(np.median(v)) for k, v in t.items()}
+    print(f"external_product_rows {params.name}: equal to plain at B=8, 256, "
+          f"R=6, 3, 2, 1 on zero and random accumulators; blocks sum to the "
+          f"step", flush=True)
+    return err, out
+
+
+def tp_phase(port, pbs_cuda, params, ck, sk, dk):
+    """Phase 16 (d): ``make_tp_pbs_fn`` on ``make_tp_mesh(1)`` at B = 8 and
+    256, each output bit-equal to ``cuda-fused``'s bootstrap of the same
+    batch and decrypt-checked, with 866 launches each of the row-block #1
+    and of #2 per call (counts set to 0 just before the two calls and read
+    just after); then two warm calls of each timed, and one of each
+    profiled (device busy time, idle share)."""
+    from chip_profile import _traced, busy_us
+    from fhe_regex_tpu_torch.crypto import lwe
+    from fhe_regex_tpu_torch.ops.pbs import make_pbs_core
+    from fhe_regex_tpu_torch.parallel.tensor import (make_tp_mesh,
+                                                     make_tp_pbs_fn)
+
+    n = params.lwe_dimension
+    tp = make_tp_pbs_fn(params, sk, make_tp_mesh(1))
+    core = make_pbs_core(dk)
+    inputs = {B: _rotation_inputs(params, ck, B, seed=1600 + B)
+              for B in (8, 256)}
+    _reset_counts(pbs_cuda)
+    outs = {}
+    for B, x in inputs.items():
+        before = (pbs_cuda.stage1_digits.launches,
+                  pbs_cuda.external_product_rows.launches)
+        outs[B] = tp(x["luts"], x["lut_idx"], x["cts"])
+        torch.cuda.synchronize()
+        steps = (pbs_cuda.stage1_digits.launches - before[0],
+                 pbs_cuda.external_product_rows.launches - before[1])
+        if steps != (n, n):
+            raise AssertionError(f"TP B={B}: launches (stage1_digits, "
+                                 f"external_product_rows) {steps}, want "
+                                 f"({n}, {n})")
+    launches = {"stage1_digits": pbs_cuda.stage1_digits.launches,
+                "external_product_rows":
+                    pbs_cuda.external_product_rows.launches}
+    numbers = {}
+    for B, x in inputs.items():
+        args = (x["luts"], x["lut_idx"], x["cts"])
+        want = core(*args)
+        if not torch.equal(outs[B], want):
+            raise AssertionError(f"TP B={B}: != cuda-fused")
+        o = outs[B].cpu().numpy().view(np.uint32)
+        dec = [lwe.decrypt_lwe(params, ck.lwe_key, o[i]) for i in range(B)]
+        exp = [x["fs"][x["idx"][i]](int(m)) for i, m in enumerate(x["msgs"])]
+        if dec != exp:
+            raise AssertionError(f"TP B={B}: wrong decryptions")
+        tp_s = [_timed(lambda: tp(*args))[1] for _ in range(2)]
+        fused_s = [_timed(lambda: core(*args))[1] for _ in range(2)]
+        wall, events = _traced(f"TP B={B}", lambda: tp(*args))
+        busy = busy_us(events) / 1e6
+        numbers[B] = {"tp_ms": [t * 1e3 for t in tp_s],
+                      "cuda_fused_ms": [t * 1e3 for t in fused_s],
+                      "profiled_wall_s": wall, "busy_s": busy,
+                      "idle_share": 1 - busy / wall}
+        print(f"TP {params.name} D=1 B={B}: equal to cuda-fused, all "
+              f"decrypt; {n} launches each of stage1_digits and "
+              f"external_product_rows a call; ms per batch "
+              f"{_fmt(numbers[B]['tp_ms'])} (cuda-fused "
+              f"{_fmt(numbers[B]['cuda_fused_ms'])}); profiled: wall "
+              f"{wall:.3f} s, device busy {busy:.3f} s, idle share "
+              f"{1 - busy / wall:.3f}", flush=True)
+    return launches, numbers
+
+
+def mesh_phase(port, pbs_cuda, plain, full, ck, sk, dk, sk64, ck64,
+               results, warm3, results64, classic, served, small_keys):
+    """Phase 16: the mesh on the card, in this process: a NCCL group of
+    world 1 (``multihost.initialize`` on a free local port), ``make_mesh(1)``
+    and every multi-GPU path of ``fhe_regex_tpu_torch.parallel`` on phase
+    1's keys, each bit-equal to its single-card phase; the group is
+    destroyed at the end.  Returns (the ``{"mesh": ...}`` numbers, the
+    row-block entry's numbers)."""
+    import torch.distributed as dist
+
+    from fhe_regex_tpu_torch.crypto import lwe
+    from fhe_regex_tpu_torch.crypto.golden import make_lut_poly
+    from fhe_regex_tpu_torch.ops.luts import LUT_OR2, lut_fn
+    from fhe_regex_tpu_torch.parallel.collective import or_tree_across_devices
+    from fhe_regex_tpu_torch.parallel.dryrun import dryrun_multichip
+    from fhe_regex_tpu_torch.parallel.mesh import make_mesh
+    from fhe_regex_tpu_torch.parallel.multihost import initialize
+    from fhe_regex_tpu_torch.regex.engine import compile_match
+
+    t0 = time.perf_counter()
+    initialize(coordinator_address=f"127.0.0.1:{_free_port()}",
+               num_processes=1, process_id=0)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the group on the card is "
+                                 f"{dist.get_backend()}, not nccl")
+        mesh = make_mesh(1)
+        nccl = ".".join(str(v) for v in torch.cuda.nccl.version())
+        print(f"mesh: {dist.get_backend()} (NCCL {nccl}), world "
+              f"{dist.get_world_size()}, make_mesh(1) on "
+              f"{mesh.device_type}; torch.cuda.device_count() "
+              f"{torch.cuda.device_count()}", flush=True)
+        out = {"nccl": nccl, "device_count": torch.cuda.device_count(),
+               "world": dist.get_world_size()}
+
+        # (a) the six requests of phase 3 with the mesh
+        _reset_counts(pbs_cuda)
+        lat = {}
+        for name, pattern, _, bit in REQUESTS:
+            ct, want = results[name]
+            res, cold = _timed(lambda: port.has_match(
+                sk, ct, pattern, fold="tree", device=DEVICE, mesh=mesh))
+            res2, warm = _timed(lambda: port.has_match(
+                sk, ct, pattern, fold="tree", device=DEVICE, mesh=mesh))
+            if not (np.array_equal(res, want) and np.array_equal(res2, want)):
+                raise AssertionError(f"{name} with the mesh != phase 3")
+            _want_bits(port.decrypt(ck, res), bit, f"{name} with the mesh")
+            lat[name] = {"cold_s": cold, "warm_s": warm,
+                         "phase3_warm_s": warm3[name]}
+            print(f"request {full.name} {name} with the mesh: equal to phase "
+                  f"3; warm {warm:.3f} s (phase 3 {warm3[name]:.3f} s), cold "
+                  f"{cold:.3f} s", flush=True)
+        launches = pbs_cuda.blind_rotate_fused.launches
+        if launches <= 0:
+            raise AssertionError("the mesh requests launched no "
+                                 "blind_rotate_fused")
+        out["requests"] = {"latency": lat, "blind_rotate_fused": launches}
+
+        # (b) the serving configuration through run_many with the mesh
+        cts, classic_res, classic_s = classic
+        mv_res, mv_warm = served
+        C = len(cts)
+        builder, root = compile_match(len(SERVE[0]), SERVE_PATTERN,
+                                      fold="tree")
+        mv = port._compile(sk, builder, root, "cuda-bg", DEVICE, None,
+                           packed=True, mesh=mesh)
+        cl = port._compile(sk, builder, root, "cuda-fused", DEVICE, False,
+                           packed=True, mesh=mesh)
+        if not mv.multivalue or cl.multivalue:
+            raise AssertionError("serving plans with the mesh: want "
+                                 "multi-value and classic")
+        _reset_counts(pbs_cuda)
+        ex_bg = port.executor_for(sk, "cuda-bg", DEVICE, mesh=mesh)
+        r, cold = _timed(lambda: ex_bg.run_many(mv, cts))
+        r2, warm = _timed(lambda: ex_bg.run_many(mv, cts))
+        bg = pbs_cuda.blind_rotate_fused_bg.launches
+        ex_f = port.executor_for(sk, "cuda-fused", DEVICE, mesh=mesh)
+        r3, cl_s = _timed(lambda: ex_f.run_many(cl, cts))
+        if not (np.array_equal(r, mv_res) and np.array_equal(r2, mv_res)
+                and np.array_equal(r3, classic_res)) or bg <= 0:
+            raise AssertionError(f"serving with the mesh != phase 10, or "
+                                 f"blind_rotate_fused_bg launches {bg}")
+        _want_bits([port.decrypt(ck, x) for x in r2],
+                   [1 - i % 2 for i in range(C)], "run_many with the mesh")
+        out["serving"] = {"mv_contents_per_s": C / warm,
+                          "phase10_mv_contents_per_s": C / mv_warm,
+                          "classic_contents_per_s": C / cl_s,
+                          "phase10_classic_contents_per_s": C / classic_s,
+                          "cold_s": cold, "blind_rotate_fused_bg": bg}
+        print(f"serving {full.name} with the mesh: run_many C={C}, "
+              f"multi-value on cuda-bg warm {warm:.3f} s ({C / warm:.2f} "
+              f"contents/s; phase 10 {C / mv_warm:.2f}), classic on "
+              f"cuda-fused {cl_s:.3f} s ({C / cl_s:.2f}; phase 10 "
+              f"{C / classic_s:.2f}); equal to phase 10; "
+              f"blind_rotate_fused_bg launches {bg}", flush=True)
+
+        # (c) one 64-bit request on cuda64-bg with the mesh
+        name, pattern, _, bit = REQUESTS[0]
+        ct64, want64 = results64[name]
+        _reset_counts(pbs_cuda)
+        res, secs = _timed(lambda: port.has_match(
+            sk64, ct64, pattern, fold="tree", device=DEVICE, mesh=mesh))
+        bg64 = pbs_cuda.blind_rotate_fused64_bg.launches
+        if not np.array_equal(res, want64) or bg64 <= 0:
+            raise AssertionError(f"64-bit {name} with the mesh != phase 6, "
+                                 f"or blind_rotate_fused64_bg launches {bg64}")
+        _want_bits(port.decrypt(ck64, res), bit, f"64-bit {name} with mesh")
+        out["request64"] = {"s": secs, "blind_rotate_fused64_bg": bg64}
+        print(f"request 64-bit {name} with the mesh on cuda64-bg: {secs:.3f} "
+              f"s, equal to phase 6; blind_rotate_fused64_bg launches {bg64}",
+              flush=True)
+
+        # (d) tensor parallelism inside one bootstrap
+        tp_launches, tp = tp_phase(port, pbs_cuda, full, ck, sk, dk)
+        out["tp"] = {"launches": tp_launches, "by_B": tp}
+        rows_err, rows = rows_vs_plain(full, dk.bsk, pbs_cuda, plain)
+
+        # (e) the OR-tree at world 1: an encrypted 1 and an encrypted 0
+        luts = _bits(np.stack([make_lut_poly(full, lambda v: v),
+                               make_lut_poly(full, lut_fn(LUT_OR2))]))
+        tree = or_tree_across_devices(dk, mesh)
+        _reset_counts(pbs_cuda)
+        for b in (1, 0):
+            bits = _bits(lwe.encrypt_lwe(full, ck.lwe_key, b, ck.rng)[None])
+            got = tree(luts, 1, bits).cpu().numpy().view(np.uint32)[0]
+            _want_bits(lwe.decrypt_lwe(full, ck.lwe_key, got), b,
+                       f"OR-tree of an encrypted {b}")
+        if pbs_cuda.blind_rotate_fused.launches != 2:
+            raise AssertionError("the OR-tree at world 1 is one bootstrap")
+        print("OR-tree at world 1: an encrypted 1 and an encrypted 0 each "
+              "decrypt to themselves (one bootstrap each)", flush=True)
+
+        # (f) the dryrun on phase 2's small keys
+        out["dryrun"] = dryrun_multichip(1, keys=small_keys)
+    finally:
+        dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"phase 16 {out['phase_s']:.1f} s", flush=True)
+    return out, (rows_err, rows, tp_launches["external_product_rows"])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs only "
@@ -1383,8 +1668,10 @@ def main() -> int:
           "plain", flush=True)
 
     # ---- phase 3: the 32-bit main path, six requests ----
+    warm3 = {}
     main_launches, results = main_path(port, pbs_cuda, full, ck, sk,
-                                       pbs_cuda.blind_rotate_fused, REQUESTS)
+                                       pbs_cuda.blind_rotate_fused, REQUESTS,
+                                       times=warm3)
 
     # the result is right by the repo's own means: the same ciphertext as
     # the plain backend on the card, and as the CPU on a small set
@@ -1498,7 +1785,7 @@ def main() -> int:
 
     # ---- phase 10: the serving path, 32 bits ----
     name, pattern, content, bit = REQUESTS[0]
-    bg_launches, s1_launches, ep_launches, classic = serving(
+    bg_launches, s1_launches, ep_launches, classic, served = serving(
         port, pbs_cuda, full, ck, sk,
         (name, pattern, content, bit) + results[name])
 
@@ -1520,6 +1807,11 @@ def main() -> int:
     # ---- phase 15: the native circuit compiler == the Python builder ----
     native_equals_python()
 
+    # ---- phase 16: the mesh on the card (NCCL, world 1) ----
+    mesh, (rows_err, rows_ms, rows_launches) = mesh_phase(
+        port, pbs_cuda, plain, full, ck, sk, dk, sk64, ck64, results, warm3,
+        results64, classic, served, (ck_s, sk_s))
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               library_ms=None):
         return {"name": name, "route": "cuda",
@@ -1540,6 +1832,11 @@ def main() -> int:
               _bound(2 * step_macs * limb_pairs(full),
                      B * rows * N + rows * k1 * N * 4 + 2 * B * k1 * N * 4),
               library_ms=steps[B]["ep_lib"]),
+        entry("external_product_rows", "blind_rotate.cu", 114, rows_launches,
+              rows_err, rows_ms[B, rows]["ms"], rows_ms[B, rows]["plain"],
+              _bound(2 * step_macs * limb_pairs(full),
+                     B * rows * N + rows * k1 * N * 4 + 2 * B * k1 * N * 4),
+              library_ms=rows_ms[B, rows]["lib"]),
         entry("stage1_digits", "blind_rotate.cu", 235, s1_launches, s1_err,
               s1[B]["ms"], s1[B]["plain"], s1[B]["bound"]),
         entry("blind_rotate_fused", "blind_rotate.cu", 358, main_launches,
@@ -1562,6 +1859,7 @@ def main() -> int:
     print(f"bounds at B=8 (ms, by): {narrow}", flush=True)
     print(f"chip_smoke {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"fft": fft}))
+    print(json.dumps({"mesh": mesh}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -16,6 +16,12 @@ blind rotation) follows the JAX package's defaults: ``multivalue=None``
 picks it automatically on the packed paths when it saves enough rotations
 (``_compile_auto_mv``) and means the classic plan elsewhere;
 ``multivalue=True`` / ``False`` force either plan.
+
+``mesh=`` (a ``parallel.mesh.make_mesh`` mesh, one process per card) on
+``executor_for``, ``has_match``, ``run_circuit``, ``has_match_patterns`` and
+``has_match_positions`` shards each level's bootstraps over the mesh's
+ranks, as the JAX package's ``mesh=`` does; every rank calls the entry
+point with the same arguments and gets the same result.
 """
 
 from __future__ import annotations
@@ -83,16 +89,38 @@ __all__ = [
 logger = logging.getLogger("fhe_regex_tpu_torch")
 
 
-def _resolve_device(device: "torch.device | str | None") -> torch.device:
+def _resolve_device(device: "torch.device | str | None",
+                    mesh=None) -> torch.device:
     """``device=None`` means CUDA; without a CUDA device that raises, so the
-    plain CPU path runs only when asked for."""
+    plain CPU path runs only when asked for.  With a mesh the device is
+    this rank's (its card under NCCL, the CPU under gloo), and a device
+    that names another raises ValueError."""
     if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+        dev = torch.device(device)
+    elif not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the port runs on CUDA by default; "
                            "pass device=\"cpu\" to run its plain PyTorch "
                            "path on the CPU")
-    return torch.device("cuda")
+    else:
+        dev = torch.device("cuda")
+    if mesh is None:
+        return dev
+    from fhe_regex_tpu_torch.parallel.mesh import indexed, mesh_device
+
+    want = mesh_device(mesh)
+    if dev.type == want.type == "cuda":
+        dev = indexed(dev)
+    if dev != want:
+        raise ValueError(f"device {dev} is not this rank's device under the "
+                         f"mesh ({want})")
+    return want
+
+
+def _min_bucket(mesh) -> int:
+    """Smallest level width: at least the mesh size, so every level
+    splits into one row block per rank (as in the JAX package)."""
+    b = default_min_bucket()
+    return b if mesh is None else max(b, mesh.size())
 
 
 def _resolve_multivalue(multivalue: Optional[bool],
@@ -156,14 +184,15 @@ def _compile_auto_mv(params: Params, builder, roots, multivalue, **kw):
 
 
 def _compile(server_key: ServerKey, builder, roots, backend, device,
-             multivalue: Optional[bool], packed: bool) -> CompiledCircuit:
+             multivalue: Optional[bool], packed: bool,
+             mesh=None) -> CompiledCircuit:
     """An entry point's circuit: the plan ``multivalue`` resolves to (auto
     on the packed paths, classic where the backend has no multi-value
     rotation), its noise margin checked at the key drop of the backend
-    that will run it."""
+    that will run it, its levels at least the mesh size wide."""
     params = server_key.params
-    device = _resolve_device(device)
-    kw = dict(min_bucket=default_min_bucket(),
+    device = _resolve_device(device, mesh)
+    kw = dict(min_bucket=_min_bucket(mesh),
               bsk_drop=active_bsk_drop(params, backend, device))
     mv = _resolve_multivalue(multivalue, packed)
     if packed:
@@ -201,25 +230,30 @@ def trivial_encrypt_str(params: Params, s: str) -> np.ndarray:
 
 
 def executor_for(server_key: ServerKey, backend: Optional[str] = None,
-                 device: "torch.device | str | None" = None) -> Executor:
+                 device: "torch.device | str | None" = None,
+                 mesh=None) -> Executor:
     """A (cached) Executor bound to this server key's material on `device`
     (None: CUDA, a RuntimeError without one; "cpu" for the plain path).
+    With ``mesh`` it shards each level over the mesh's ranks, on this
+    rank's device.
 
-    Executors are cached on the key per (backend, device), so repeated
-    calls reuse the device upload.  Run a custom circuit with
-    ``executor.run(compile_circuit(params, builder, root), ct_content)``.
+    Executors are cached on the key per (backend, device, mesh), so
+    repeated calls reuse the device upload.  Run a custom circuit with
+    ``executor.run(compile_circuit(params, builder, root), ct_content)``
+    (under a mesh, with ``min_bucket`` at least the mesh size).
     """
     from fhe_regex_tpu_torch.params import warn_if_unsafe
 
     warn_if_unsafe(server_key.params, "executor_for")
-    device = _resolve_device(device)
+    device = _resolve_device(device, mesh)
     backend = resolve_backend(backend, device, server_key.params)
     cache = server_key.__dict__.setdefault("_torch_executors", {})
-    key = (backend, str(device))
+    # the cached Executor holds the mesh, so its id stays this mesh's
+    key = (backend, str(device), None if mesh is None else id(mesh))
     if key not in cache:
         dev_key = prepare_server_key(server_key.params, server_key, device,
                                      backend)
-        cache[key] = Executor(server_key.params, dev_key)
+        cache[key] = Executor(server_key.params, dev_key, mesh=mesh)
     return cache[key]
 
 
@@ -245,7 +279,7 @@ def _compile_single(params: Params, content_len: int, pattern: str,
 
 
 def has_match(server_key: ServerKey, ct_content: np.ndarray, pattern: str,
-              backend: Optional[str] = None,
+              backend: Optional[str] = None, mesh=None,
               fold: str = "reference",
               engine: Optional[str] = None,
               branch_budget: Optional[int] = None,
@@ -265,13 +299,14 @@ def has_match(server_key: ServerKey, ct_content: np.ndarray, pattern: str,
     circuit); ``branch_budget`` bounds variant expansion with a clean
     BranchBudgetExceeded; ``multivalue=True`` shares blind rotations
     between ops with the same input (default: the classic plan, or
-    FHE_REGEX_MULTIVALUE=1).
+    FHE_REGEX_MULTIVALUE=1); ``mesh`` shards each level's bootstraps
+    across the mesh's ranks (``parallel/mesh.py``).
     """
     builder, root = _compile_single(server_key.params, len(ct_content),
                                     pattern, fold, engine, branch_budget)
     circuit = _compile(server_key, builder, root, backend, device,
-                       multivalue, packed=False)
-    executor = executor_for(server_key, backend, device)
+                       multivalue, packed=False, mesh=mesh)
+    executor = executor_for(server_key, backend, device, mesh)
     result = executor.run(circuit, np.ascontiguousarray(ct_content))
     logger.info(
         "%d ciphertext operations, %d cache hits (%d bootstraps in %d levels)",
@@ -321,7 +356,8 @@ def has_match_many(server_key: ServerKey, ct_contents, pattern: str,
 
 def run_circuit(server_key: ServerKey, builder: CircuitBuilder, root,
                 ct_content: np.ndarray, backend: Optional[str] = None,
-                device: "torch.device | str | None" = None) -> np.ndarray:
+                device: "torch.device | str | None" = None,
+                mesh=None) -> np.ndarray:
     """One-shot compile + execute of a custom CircuitBuilder DAG.
 
     ``root`` is one Node (result ``[num_blocks, n+1]``) or a list of Nodes
@@ -335,8 +371,8 @@ def run_circuit(server_key: ServerKey, builder: CircuitBuilder, root,
     else:
         root = builder.force_node(root)
     circuit = compile_circuit(params, builder, root,
-                              min_bucket=default_min_bucket())
-    executor = executor_for(server_key, backend, device)
+                              min_bucket=_min_bucket(mesh))
+    executor = executor_for(server_key, backend, device, mesh)
     return executor.run(circuit, np.ascontiguousarray(ct_content))
 
 
@@ -368,11 +404,11 @@ def _compile_positions(params: Params, content_len: int, pattern: str,
 
 
 def _run_roots(server_key, backend, device, multivalue, builder, roots,
-               ct_content, what: str) -> np.ndarray:
+               ct_content, what: str, mesh=None) -> np.ndarray:
     """One content through a multi-root circuit: [R, num_blocks, n+1]."""
     circuit = _compile(server_key, builder, roots, backend, device,
-                       multivalue, packed=False)
-    executor = executor_for(server_key, backend, device)
+                       multivalue, packed=False, mesh=mesh)
+    executor = executor_for(server_key, backend, device, mesh)
     result = executor.run(circuit, np.ascontiguousarray(ct_content))
     logger.info(
         "%d %s: %d ciphertext operations, %d cache hits "
@@ -400,7 +436,7 @@ def _run_roots_many(server_key, backend, device, multivalue, builder, roots,
 
 
 def has_match_patterns(server_key: ServerKey, ct_content: np.ndarray,
-                       patterns, backend: Optional[str] = None,
+                       patterns, backend: Optional[str] = None, mesh=None,
                        fold: str = "tree", engine: Optional[str] = None,
                        branch_budget: Optional[int] = None,
                        multivalue: Optional[bool] = None,
@@ -411,17 +447,19 @@ def has_match_patterns(server_key: ServerKey, ct_content: np.ndarray,
     All patterns share a single hash-consed op DAG, so subexpressions common
     across patterns are bootstrapped once.  Returns one radix ciphertext
     per pattern, `[P, num_blocks, n+1]`, in pattern order; decrypt each with
-    ``decrypt``.  ``engine`` and ``multivalue`` as in ``has_match``.
+    ``decrypt``.  ``engine``, ``multivalue`` and ``mesh`` as in
+    ``has_match``.
     """
     builder, roots = _compile_multi(server_key.params, len(ct_content),
                                     patterns, fold, engine, branch_budget)
     return _run_roots(server_key, backend, device, multivalue, builder,
-                      roots, ct_content, "patterns")
+                      roots, ct_content, "patterns", mesh)
 
 
 def has_match_positions(server_key: ServerKey, ct_content: np.ndarray,
                         pattern: str, backend: Optional[str] = None,
-                        fold: str = "tree", engine: Optional[str] = None,
+                        mesh=None, fold: str = "tree",
+                        engine: Optional[str] = None,
                         branch_budget: Optional[int] = None,
                         multivalue: Optional[bool] = None,
                         device: "torch.device | str | None" = None
@@ -429,12 +467,13 @@ def has_match_positions(server_key: ServerKey, ct_content: np.ndarray,
     """Per-offset encrypted match bits: result[i] encrypts 1 iff the pattern
     matches starting at content position i (``has_match``'s bit is their
     OR).  Returns `[len, num_blocks, n+1]`; decrypt each row with
-    ``decrypt``.  ``engine`` and ``multivalue`` as in ``has_match``.
+    ``decrypt``.  ``engine``, ``multivalue`` and ``mesh`` as in
+    ``has_match``.
     """
     builder, roots = _compile_positions(server_key.params, len(ct_content),
                                         pattern, fold, engine, branch_budget)
     return _run_roots(server_key, backend, device, multivalue, builder,
-                      roots, ct_content, "positions")
+                      roots, ct_content, "positions", mesh)
 
 
 def has_match_many_patterns(server_key: ServerKey, ct_contents, patterns,

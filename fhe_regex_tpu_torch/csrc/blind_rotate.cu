@@ -9,10 +9,12 @@
 //    rotation over batch blocks of tb instances, one block after another;
 //  * _stage1_kernel: fhe_stage1_digits, one `stage1` launch (plain:
 //    stage1_digits);
-//  * _ext_product_kernel (:114): fhe_external_product_step, one
+//  * _ext_product_kernel (:114): fhe_external_product_rows, one
 //    `ext_product` launch onto a copy of the accumulator (plain:
-//    external_product_step).  These two are the per-step backend `cuda`,
-//    whose step loop runs in Python.
+//    external_product_step), over all of a step's digit rows, or over a
+//    block of them, one rank's share of a step under tensor parallelism
+//    (parallel/tensor.py).  With the digit pass it is the per-step backend
+//    `cuda`, whose step loop runs in Python.
 // The external product inside _fused_blindrot_kernel (:358) and
 // _fused_blindrot_bg_kernel (:713) is the same `ext_product` device code.
 //
@@ -458,22 +460,26 @@ int fhe_stage1_digits(const int32_t* a, const int32_t* acc, int8_t* digits,
                        static_cast<cudaStream_t>(stream_ptr));
 }
 
-// One CMUX step's external product (the `_ext_product_kernel`
-// counterpart): out = acc + sum_r digits[:, r] (*) ggsw_i[r, c] mod X^N+1,
-// mod 2^32.  out starts as a copy of acc, so acc is left as it is.
-//   digits [B, k1*level, N] int8 (16-byte aligned)   ggsw_i [k1*level, k1, N]
+// The external product over `rows` digit rows: out = acc + sum_r
+// digits[:, r] (*) ggsw[r, c] mod X^N+1, mod 2^32, r < rows.  out starts as
+// a copy of acc, so acc is left as it is.  With rows = k1*level it is one
+// CMUX step's external product (the `_ext_product_kernel` counterpart);
+// with a contiguous block of the rows it is one rank's share of that step
+// under tensor parallelism (the rows of a GGSW are its outermost axis, so a
+// row block of it is contiguous).
+//   digits [B, rows, N] int8 (16-byte aligned)   ggsw [rows, k1, N]
 //   acc, out [B, k1, N]
-int fhe_external_product_step(const int8_t* digits, const int32_t* ggsw_i,
+int fhe_external_product_rows(const int8_t* digits, const int32_t* ggsw,
                               const int32_t* acc, int32_t* out, int B, int k1,
-                              int N, int level, void* stream_ptr) {
+                              int N, int rows, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = cudaMemcpyAsync(
       out, acc, (size_t)B * k1 * N * sizeof(int32_t),
       cudaMemcpyDeviceToDevice, stream);
   if (err != cudaSuccess) return (int)err;
-  return launch_ext_product(digits, reinterpret_cast<const uint32_t*>(ggsw_i),
-                            reinterpret_cast<uint32_t*>(out), B, k1, N,
-                            k1 * level, false, stream);
+  return launch_ext_product(digits, reinterpret_cast<const uint32_t*>(ggsw),
+                            reinterpret_cast<uint32_t*>(out), B, k1, N, rows,
+                            false, stream);
 }
 
 }  // extern "C"

@@ -15,6 +15,9 @@ initial X^{-b~} rotation built on the device, or one CMUX stage at a time.
                               ``csrc/blind_rotate64.cu``
   ``external_product_step``   one CMUX step's external product, same
                               source (``_ext_product_kernel``)
+  ``external_product_rows``   the same over a block of the digit rows, one
+                              rank's share of a step under tensor
+                              parallelism (``parallel/tensor.py``)
   ``blind_rotate_steps``      the rotation as a Python loop over the two
                               above (``blind_rotate_pallas``)
   ``blind_rotate_fused64``    64-bit, ``csrc/blind_rotate64.cu``
@@ -31,12 +34,15 @@ The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/`` at the repository root, keyed by a hash of the sources and the
 header they share (one ``nvcc`` per source, all at once, then one link),
 and bound through ``ctypes`` (plain C entry points, no PyTorch headers).
-Nothing is compiled or loaded when this module is imported.
+The build holds an exclusive ``fcntl`` lock on a file beside it, so the
+ranks of one host (``torchrun --nproc-per-node``) build it once between
+them.  Nothing is compiled or loaded when this module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -85,10 +91,21 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile the kernels unless a build of the current sources exists:
-    every source at once into an object file, then one shared library."""
+    every source at once into an object file, then one shared library.
+    Processes that build at once wait on one lock; the first builds and
+    the others find its library."""
     out = library_path()
     if out.exists():
         return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / f"{out.stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)     # released when the file closes
+        if not out.exists():
+            _compile(out)
+    return out
+
+
+def _compile(out: Path) -> None:
     nvcc = _nvcc()
     tmp = BUILD_DIR / f"{out.stem}.{os.getpid()}"
     tmp.mkdir(parents=True, exist_ok=True)
@@ -111,7 +128,6 @@ def build() -> Path:
                            f"{res.stderr}")
     os.replace(lib, out)
     shutil.rmtree(tmp, ignore_errors=True)
-    return out
 
 
 def _load():
@@ -123,7 +139,7 @@ def _load():
             "fhe_blind_rotate": (6, 6),
             "fhe_blind_rotate_bg": (6, 7),
             "fhe_stage1_digits": (3, 5),
-            "fhe_external_product_step": (4, 4),
+            "fhe_external_product_rows": (4, 4),
             "fhe_blind_rotate64": (6, 10),
             "fhe_stage1_digits64": (3, 6),
         }
@@ -329,6 +345,25 @@ def stage1_digits(params: Params, acc: torch.Tensor,
 stage1_digits.launches = 0
 
 
+def _external_product(params: Params, digits, ggsw, acc,
+                      rows: int) -> torch.Tensor:
+    """One ``fhe_external_product_rows`` launch over ``rows`` digit rows:
+    digits [B, rows, N] int8, ggsw [rows, k+1, N], acc [B, k+1, N] -> a new
+    [B, k+1, N]."""
+    _check_params32(params)
+    k1, N = params.glwe_dimension + 1, params.polynomial_size
+    B, dev = acc.shape[0], acc.device
+    _check("acc", acc, (B, k1, N), torch.int32, dev)
+    _check("digits", digits, (B, rows, N), torch.int8, dev)
+    _check("ggsw", ggsw, (rows, k1, N), torch.int32, dev)
+    _check_aligned("digits", digits,
+                   "the kernel stages them with 16-byte cp.async")
+    out = torch.empty_like(acc)
+    _call("fhe_external_product_rows", dev, digits.data_ptr(),
+          ggsw.data_ptr(), acc.data_ptr(), out.data_ptr(), B, k1, N, rows)
+    return out
+
+
 def external_product_step(params: Params, digits: torch.Tensor,
                           ggsw_i: torch.Tensor,
                           acc: torch.Tensor) -> torch.Tensor:
@@ -340,23 +375,39 @@ def external_product_step(params: Params, digits: torch.Tensor,
     ``external_product_step.launches``)."""
     if not _on_cuda("external product", acc):
         return plain.external_product_step(params, digits, ggsw_i, acc)
-    _check_params32(params)
-    k1, N = params.glwe_dimension + 1, params.polynomial_size
-    rows, B, dev = k1 * params.pbs_level, acc.shape[0], acc.device
-    _check("acc", acc, (B, k1, N), torch.int32, dev)
-    _check("digits", digits, (B, rows, N), torch.int8, dev)
-    _check("ggsw_i", ggsw_i, (rows, k1, N), torch.int32, dev)
-    _check_aligned("digits", digits,
-                   "the kernel stages them with 16-byte cp.async")
-    out = torch.empty_like(acc)
-    _call("fhe_external_product_step", dev, digits.data_ptr(),
-          ggsw_i.data_ptr(), acc.data_ptr(), out.data_ptr(), B, k1, N,
-          params.pbs_level)
+    rows = (params.glwe_dimension + 1) * params.pbs_level
+    out = _external_product(params, digits, ggsw_i, acc, rows)
     external_product_step.launches += 1
     return out
 
 
 external_product_step.launches = 0
+
+
+def external_product_rows(params: Params, digits: torch.Tensor,
+                          ggsw_rows: torch.Tensor,
+                          acc: torch.Tensor) -> torch.Tensor:
+    """``external_product_step`` over R of the (k+1)l digit rows: acc +
+    sum_r digits[:, r] (*) ggsw_rows[r, c] for digits [B, R, N] int8 (a
+    contiguous block of a step's digit rows), ggsw_rows [R, k+1, N] int32
+    (the same rows of the step's GGSW), acc [B, k+1, N] int32 -> a new
+    [B, k+1, N] int32.  Under tensor parallelism each rank runs it on its
+    row block and a zero acc, and the partial sums meet in an all-reduce.
+    CPU tensors take the plain ``ops.pbs.external_product_step``, which
+    takes any row count; CUDA tensors launch #1's device code over R rows
+    (each call adds one to ``external_product_rows.launches``)."""
+    if not _on_cuda("external product", acc):
+        return plain.external_product_step(params, digits, ggsw_rows, acc)
+    R = digits.shape[1]
+    if not 1 <= R <= (params.glwe_dimension + 1) * params.pbs_level:
+        raise ValueError(f"{R} digit rows: a step has 1 to "
+                         f"{(params.glwe_dimension + 1) * params.pbs_level}")
+    out = _external_product(params, digits, ggsw_rows, acc, R)
+    external_product_rows.launches += 1
+    return out
+
+
+external_product_rows.launches = 0
 
 
 def blind_rotate_steps(params: Params, bsk: torch.Tensor, luts: torch.Tensor,
@@ -499,8 +550,8 @@ stage1_digits64.launches = 0
 
 
 KERNELS = (blind_rotate_fused, blind_rotate_fused_bg, stage1_digits,
-           external_product_step, blind_rotate_fused64,
-           blind_rotate_fused64_bg, stage1_digits64)
+           external_product_step, external_product_rows,
+           blind_rotate_fused64, blind_rotate_fused64_bg, stage1_digits64)
 
 
 def launch_counts() -> dict:

@@ -29,6 +29,12 @@ Both can checkpoint their slab (``utils/checkpoint.py``) and resume from
 it; a checkpoint carries the ``circuit_fingerprint`` of the plan that saved
 it, and a resume under any other plan is refused.  Every run feeds the
 executor's ``LaunchWatchdog`` (``utils/watchdog.py``).
+
+With a ``mesh`` (``parallel/mesh.py``) every rank runs the same executor on
+the same inputs: each level's bootstraps (or rotations and derived
+extracts) split into one contiguous row block per rank, and the blocks are
+all-gathered into every rank's slab.  Level widths and launch widths must
+then be multiples of the mesh size (compile with min_bucket >= D).
 """
 
 from __future__ import annotations
@@ -411,14 +417,24 @@ def _check_fingerprint(path, want: str) -> None:
 
 
 class Executor:
-    """Runs compiled circuits against one server key's device material."""
+    """Runs compiled circuits against one server key's device material.
 
-    def __init__(self, params: Params, dev_key):
+    With a mesh, each level's PBS batch is sharded across the mesh's ranks
+    (``parallel/mesh.py``); the key must be on this rank's device, and
+    circuits must be compiled with min_bucket >= mesh size.
+    """
+
+    def __init__(self, params: Params, dev_key, mesh=None):
         self.params = params
         self.device = dev_key.device
+        self.mesh = mesh
         self.watchdog = LaunchWatchdog()
         self._dev_key = dev_key
-        self._core = make_pbs_core(dev_key)
+        if mesh is None:
+            self._core = make_pbs_core(dev_key)
+        else:
+            from fhe_regex_tpu_torch.parallel.mesh import make_sharded_pbs_core
+            self._core = make_sharded_pbs_core(dev_key, mesh)
         self._vlut = mv_lut_table(params, self.device)
         self.last_run_stats: List[dict] = []
         self.last_run_pfail: "dict | None" = None
@@ -431,11 +447,22 @@ class Executor:
     def _mv_rotate(self):
         """The multi-value rotate core, made at first use: on a backend
         without a multi-value rotation (``fft``) a multi-value circuit
-        raises ValueError here, and the classic plan runs."""
+        raises ValueError here, and the classic plan runs.  Under a mesh
+        the rotation batch is sharded and the accumulators all-gathered."""
+        if self.mesh is not None:
+            from fhe_regex_tpu_torch.parallel.mesh import (
+                make_sharded_mv_rotate_core)
+            return make_sharded_mv_rotate_core(self._dev_key, self.mesh)
         return make_mv_rotate_core(self._dev_key)
 
     @functools.cached_property
     def _mv_finish(self):
+        """The derived extracts and keyswitch; under a mesh the op batch is
+        sharded and the outputs all-gathered."""
+        if self.mesh is not None:
+            from fhe_regex_tpu_torch.parallel.mesh import (
+                make_sharded_mv_finish_core)
+            return make_sharded_mv_finish_core(self._dev_key, self.mesh)
         return make_mv_finish_core(self._dev_key)
 
     def _affine_combine(self, gathered, in_coefs, consts):

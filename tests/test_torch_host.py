@@ -43,7 +43,6 @@ COPIED = [
     "utils/__init__.py",
     "utils/watchdog.py",
     "utils/security.py",
-    "utils/metrics.py",
     "models/__init__.py",
     "models/patterns.py",
 ]
@@ -142,6 +141,36 @@ def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
     assert path == pbs_cuda.library_path()        # keyed by the sources only
 
 
+def test_kernel_build_is_locked(monkeypatch, tmp_path):
+    """Ranks that reach the build at once (torchrun on one host) compile
+    the library once: the first holds the lock and builds, the others
+    wait on it and load that build."""
+    import threading
+    import time
+
+    from fhe_regex_tpu_torch.ops import pbs_cuda
+
+    monkeypatch.setattr(pbs_cuda, "BUILD_DIR", tmp_path / "build")
+    builds = []
+
+    def fake_compile(out):
+        builds.append(out)
+        time.sleep(0.2)
+        out.write_bytes(b"library")
+
+    monkeypatch.setattr(pbs_cuda, "_compile", fake_compile)
+    got = []
+    ranks = [threading.Thread(target=lambda: got.append(pbs_cuda.build()))
+             for _ in range(4)]
+    for t in ranks:
+        t.start()
+    for t in ranks:
+        t.join(timeout=30)
+    assert not any(t.is_alive() for t in ranks)
+    assert builds == [pbs_cuda.library_path()]
+    assert got == [pbs_cuda.library_path()] * 4
+
+
 def test_kernel_wrapper_rejects_other_devices():
     from fhe_regex_tpu_torch.ops.pbs_cuda import blind_rotate_fused
     from fhe_regex_tpu_torch.params import get_params
@@ -179,9 +208,11 @@ def test_chip_profile_busy_time_is_a_union():
                                   "REF_MESSAGE_2_CARRY_2_64",
                                   "TPU64_MESSAGE_2_CARRY_2", "TEST_PARAMS",
                                   "TEST_PARAMS_NOISY", "TEST_PARAMS_64"])
-def test_security_and_cost_models_equal_jax(name):
-    """The copied lattice estimate and cost models give the JAX package's
-    numbers at every named parameter set."""
+def test_security_and_cost_models_equal_jax(name, monkeypatch):
+    """The copied lattice estimate and the cost models give the JAX
+    package's numbers at every named parameter set: the port keeps the
+    formulas and only its default figures are the card's, so both packages
+    get the JAX package's figures here."""
     from fhe_regex_tpu.params import get_params as jget
     from fhe_regex_tpu.utils import metrics as jmetrics
     from fhe_regex_tpu.utils import security as jsecurity
@@ -201,6 +232,43 @@ def test_security_and_cost_models_equal_jax(name):
     for limbs in (1, 4):
         assert (dataclasses.asdict(metrics.pbs_cost_model(mine, limbs))
                 == dataclasses.asdict(jmetrics.pbs_cost_model(theirs, limbs)))
+    rate, bw, lat, nbw, nlat = 950.0, 45e9, 5e-6, 25e9, 50e-6
+    monkeypatch.setattr(metrics, "TP_GLUE_FRACTION",
+                        jmetrics.TP_GLUE_FRACTION)
     for D, B, hosts in ((1, 256, 1), (4, 256, 1), (8, 1792, 2)):
-        assert (metrics.comm_model(mine, D, B, hosts=hosts)
-                == jmetrics.comm_model(theirs, D, B, hosts=hosts))
+        assert (metrics.comm_model(
+                    mine, D, B, hosts=hosts, pbs_rate_per_chip=rate,
+                    link_bw=bw, link_lat=lat, net_bw=nbw, net_lat=nlat)
+                == jmetrics.comm_model(
+                    theirs, D, B, hosts=hosts, pbs_rate_per_chip=rate,
+                    ici_bw=bw, ici_lat=lat, dcn_bw=nbw, dcn_lat=nlat))
+    assert (metrics.speed_of_light_pbs_per_sec(mine, tops=197.0)
+            == jmetrics.speed_of_light_pbs_per_sec(theirs, tflops=197.0))
+
+
+def test_metrics_defaults_are_h100_figures():
+    """The port's cost-model defaults are the card's: NVLink 4 at 450 GB/s
+    each way, a 400 Gb/s NDR port per card, the 1829 PBS/s measured on an
+    H100 at B = 256, its 1979 TOP/s of dense int8, and a TP split measured
+    by chip_profile.py; no TPU figure or term is left in the module."""
+    import inspect
+
+    from fhe_regex_tpu_torch.utils import metrics
+
+    kw = {k: v.default for k, v in
+          inspect.signature(metrics.comm_model).parameters.items()
+          if v.default is not inspect.Parameter.empty}
+    assert kw == {"pbs_rate_per_chip": 1829.0, "link_bw": 450e9,
+                  "link_lat": 1e-5, "net_bw": 50e9, "net_lat": 2e-5,
+                  "hosts": 1}
+    sol = inspect.signature(metrics.speed_of_light_pbs_per_sec).parameters
+    assert sol["tops"].default == 1979.0
+    prof = metrics.TP_PROFILE
+    assert prof["source"].startswith("chip_profile.py")
+    assert "H100" in prof["measured"] and "700" in prof["measured"]
+    assert prof["total_s"] > prof["ext_product_s"] > prof["glue_s"] > 0
+    assert abs(prof["ext_product_s"] + prof["glue_s"] - prof["total_s"]) < 1e-9
+    assert metrics.TP_GLUE_FRACTION == prof["glue_s"] / prof["total_s"]
+    src = (PORT / "utils" / "metrics.py").read_text()
+    assert not re.search(r"v5e|\bICI\b|\bDCN\b|\bMXU\b|ici_|dcn_|bf16|"
+                         r"\bTPU\b|197\.0|950\.0", src)

@@ -93,15 +93,15 @@ ENTRY_POINTS = ["has_match", "has_match_many", "has_match_patterns",
                                                  "_compile_positions"])
 def test_engine_in_the_jax_place(name):
     """engine= comes right after fold, as in the JAX package; the private
-    compilers take the JAX package's arguments in its order."""
+    compilers take the JAX package's arguments in its order, and the entry
+    points every JAX argument (mesh= too) in its place."""
     params = list(inspect.signature(getattr(port, name)).parameters)
     jparams = list(inspect.signature(getattr(J, name)).parameters)
     assert params.index("engine") == params.index("fold") + 1
     if name.startswith("_"):
         assert params == jparams
     else:
-        assert [p for p in jparams if p != "mesh"] == [
-            p for p in params if p in jparams]
+        assert jparams == [p for p in params if p in jparams]
         assert inspect.signature(getattr(port, name)).parameters[
             "engine"].default is None
 

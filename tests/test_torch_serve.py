@@ -189,7 +189,7 @@ def test_stats_kernel_launches(both, servers):
     got = _get(turl, "/stats")["kernel_launches"]
     assert got == pbs_cuda.launch_counts()
     assert set(got) == {k.__name__ for k in pbs_cuda.KERNELS}
-    assert len(got) == 7 and not any(got.values())
+    assert len(got) == 8 and not any(got.values())
 
 
 @pytest.mark.parametrize("req", [
