@@ -9,7 +9,8 @@ once under ``torch.profiler``:
 
 1. ``exact_literal`` of ``chip_smoke.REQUESTS`` through ``has_match`` on
    the per-step backend ``cuda`` (two launches per CMUX step, enqueued
-   from Python);
+   from Python), level by level (FHE_REGEX_FUSE_LEVELS=0: the graph of
+   the level loop is profiled in ``chip_smoke.py`` phase 16);
 2. ``has_match_many`` on the configuration of ``benchmarks/serving.py``
    (32 contents of 16 characters, ``/abc/``) on ``cuda-bg``, on its
    default (multi-value) plan;
@@ -57,6 +58,7 @@ The last line is a JSON object with these numbers.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -382,6 +384,7 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
         timeout=60).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    os.environ["FHE_REGEX_FUSE_LEVELS"] = "0"     # the per-level loop
     params = get_params(smoke.FULL)
     ck, sk, _ = smoke._keys(params)
     name, pattern, content, bit = smoke.REQUESTS[0]

@@ -64,7 +64,9 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    ``has_match_many_patterns``, ``has_match_many_positions``,
    ``has_match_long`` (256 characters, five windows) and ``count_matches``
    on the default backend, each decrypt-checked; then one request through
-   ``has_match(backend="cuda")``, equal to its ``cuda-fused`` result;
+   ``has_match(backend="cuda")``, equal to its ``cuda-fused`` result (its
+   level loop captured as a CUDA graph, the default on ``cuda``: the
+   launches counted are the warm-up pass's);
 11. 64-bit serving: ``has_match_many`` at TPU64_MESSAGE_2_CARRY_2 on
    ``cuda64-bg`` (multi-value plan), 8 contents, decrypt-checked; one
    multi-value ``has_match`` request on ``cuda64`` equal to ``torch64`` on
@@ -78,7 +80,8 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    daemon compiled; ``/match_many`` of the serving configuration three
    times, bit-equal to ``has_match_many``; one patterns, positions,
    ``/count`` and ``/match_long`` request; then ``/stats`` must count every
-   request and show watchdog EMAs of a "levels" and a "many" shape;
+   request and show watchdog EMAs of a "levels" shape (``/match`` on
+   ``cuda-fused`` keeps the per-level loop by default) and a "many" shape;
    latencies over HTTP beside in-process ones; the daemon's own launch
    counts (``/stats`` "kernel_launches", read just before and just after)
    must show #3 launched by the six /match and by the /match_many;
@@ -111,11 +114,38 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    compiler the checkout had: the engine is printed beside the latencies)
    builds the Python builder's circuits, op for op, for the DRIVER_CONFIGS
    and the serving configuration;
-16. last, the mesh on the card (``fhe_regex_tpu_torch.parallel``): a NCCL
+16. the whole level loop as one CUDA graph (``Executor.run(fuse=True)``,
+   captured at a plan's first run on an executor, then replayed), on fresh
+   executors against the per-level loop: each circuit compiled twice, a
+   per-level cold run of one and a fused cold run (its warm-up pass gives
+   the result, then capture and instantiation) of the other, then warm
+   runs of each (wall and CUDA events), every result bit-equal to the
+   per-level one and to its earlier phase; the per-level loop must launch
+   the backend's kernel, and it, the fused cold run and every replay must
+   count the launches the capture recorded; the graph's private pool
+   bytes.  (a) The six requests on ``cuda-fused`` (== phase 3); (b)
+   ``exact_literal`` and ``north_star_hit`` at TPU64_MESSAGE_2_CARRY_2 on
+   ``cuda64-bg`` (== phase 6); (c) ``contains_anchors`` on its
+   multi-value plan; (d) ``exact_literal`` on ``cuda-fused``, on the
+   per-step ``cuda`` backend and on ``fft``, one warm run of each loop
+   profiled (wall, device busy as ``chip_profile`` sums it, idle share;
+   the ``acc_init``, ``stage1`` and ``ext_product`` kernels in the trace
+   must be those the recorded launches run, per-level and replayed), the
+   graph's nodes and instantiation seconds from a second capture kept as
+   a graph, and the host memory over the capture; then the request of the
+   most rotations on ``cuda``; (e) with FHE_REGEX_FUSE_LEVELS unset,
+   ``has_match`` keeps the per-level loop on ``cuda-fused`` (the
+   watchdog's "levels" key) and takes the graph on ``cuda`` ("fused"), a
+   warm replay counting #1 and #2.  A JSON line ``{"fuse": ...}``
+   precedes the kernels line;
+17. last, the mesh on the card (``fhe_regex_tpu_torch.parallel``): a NCCL
    process group of world 1 in this process (``multihost.initialize`` on
    a free local port; one card holds one rank) and ``make_mesh(1)``:
    (a) the six 32-bit requests through ``has_match(mesh=)``, each
-   bit-equal to its phase-3 result, warm latency beside phase 3's; (b)
+   bit-equal to its phase-3 result, warm latency beside phase 3's (level
+   by level, each all-gather issued eagerly, as the watchdog must show),
+   then ``alternation_combo`` through ``run(fuse=True)`` on the mesh
+   executor, its all-gathers captured in the graph; (b)
    the serving configuration through ``executor_for(mesh=).run_many`` on
    the multi-value plan (``cuda-bg``) and the classic plan
    (``cuda-fused``), bit-equal to phase 10, contents/s beside phase 10's;
@@ -150,9 +180,12 @@ larger; the H100 SXM data sheet's peaks).  The last line is
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import gc
 import json
 import math
+import re
 import socket
 import subprocess
 import sys
@@ -1011,6 +1044,8 @@ def daemon(port, params, ck, sk):
         want_counts = {"/compile": 7, "/match": 9, "/match_many": 3,
                        "/count": 1, "/match_long": 1}
         ema = stats["launch_ema_s"]
+        # /match runs the per-level loop (no graph by default on
+        # cuda-fused), /match_many the packed plan
         if counts != want_counts or not (
                 any(k.startswith("('levels'") for k in ema)
                 and any(k.startswith("('many'") for k in ema)):
@@ -1259,6 +1294,339 @@ def fft_backend(port, pbs_cuda, params, ck, sk, dk, results, classic):
             "serving_cuda_fused_classic_contents_per_s": C / classic_s}
 
 
+def _run_timed(fn):
+    """(result, wall seconds, device-stream seconds) of one call of fn:
+    a host clock and two CUDA events around it, synchronised."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end) / 1e3
+
+
+def _rss_bytes() -> int:
+    """This process's resident memory now (Linux)."""
+    import os
+
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+def _busy(fn):
+    """(wall seconds, device busy seconds, {kernel name: count}) of one
+    warm call of fn under ``torch.profiler`` with device activity only;
+    busy is the union of the device intervals (``chip_profile.busy_us``'s
+    method), read from the profiler's raw events: building its Python event
+    tree for the ~175k kernels of an ``fft`` request takes longer than the
+    run.  A kernel's name is its function's, without namespace, template
+    arguments or signature."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in events)
+    if not spans:
+        raise AssertionError("the profiler recorded no device events")
+    names = collections.Counter()
+    for e in events:
+        m = re.search(r"(\w+)[<(]", e.name())
+        names[m.group(1) if m else e.name()] += 1
+    busy, end = 0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy, end = busy + b - a, b
+        elif b > end:
+            busy, end = busy + b - end, b
+    return wall, busy / 1e9, names
+
+
+def _our_kernels(launches: dict, n: int) -> dict:
+    """{device function: kernels run} for ``launches`` ({wrapper name:
+    launches}) of ``ops/pbs_cuda.py``'s 32-bit wrappers: a whole rotation
+    is one ``acc_init`` and n (``stage1``, ``ext_product``) pairs."""
+    rot = launches.get("blind_rotate_fused", 0)
+    return {"acc_init": rot,
+            "stage1": n * rot + launches.get("stage1_digits", 0),
+            "ext_product": n * rot + launches.get("external_product_step", 0)}
+
+
+def _graph_nodes(entry, pbs_cuda):
+    """(nodes, instantiate seconds) of a second capture of ``entry``'s
+    level loop, kept as a graph (``keep_graph=True``) and instantiated on
+    its own; nodes from libcuda's ``cuGraphGetNodes``.  (None, None)
+    where this PyTorch cannot keep a captured graph."""
+    import ctypes
+
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError:
+        return None, None
+    before = pbs_cuda.launch_counts()
+    try:
+        with torch.cuda.graph(graph):
+            entry.body()
+    finally:
+        pbs_cuda.add_launches(pbs_cuda.launch_delta(
+            before, pbs_cuda.launch_counts()), -1)
+    t0 = time.perf_counter()
+    graph.instantiate()
+    inst_s = time.perf_counter() - t0
+    cuda = ctypes.CDLL("libcuda.so.1")
+    cuda.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(ctypes.c_size_t)]
+    n = ctypes.c_size_t(0)
+    err = cuda.cuGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None,
+                               ctypes.byref(n))
+    if err != 0:
+        raise AssertionError(f"cuGraphGetNodes: CUresult {err}")
+    del graph
+    torch.cuda.synchronize()
+    return n.value, inst_s
+
+
+def _fused_vs_levels(label, ex, make, ct, want, pbs_cuda, kernel=None,
+                     reps=3):
+    """One circuit on a fresh executor: a per-level cold run of one compile
+    (plan upload included), a fused cold run of another compile of the
+    same plan (its warm-up pass computes the result, then the capture),
+    then ``reps`` warm runs of each; every result equal to ``want`` (None:
+    to the first per-level one).  ``make()`` compiles the circuit.  The
+    per-level run must launch ``kernel`` (a wrapper; None: no check), and
+    the per-level run, the fused cold run and every replay must each count
+    the launches the capture recorded.  Returns the numbers."""
+    circuit, twin = make(), make()
+    before = pbs_cuda.launch_counts()
+    lv_cold, lv_cold_s, _ = _run_timed(lambda: ex.run(circuit, ct,
+                                                      fuse=False))
+    lv_launches = pbs_cuda.launch_delta(before, pbs_cuda.launch_counts())
+    if kernel is not None and lv_launches.get(kernel.__name__, 0) <= 0:
+        raise AssertionError(f"{label}: the per-level loop launched no "
+                             f"{kernel.__name__} ({lv_launches})")
+    before = pbs_cuda.launch_counts()
+    rss0 = _rss_bytes()
+    fz_cold, fz_cold_s, _ = _run_timed(lambda: ex.run(twin, ct, fuse=True))
+    rss = _rss_bytes() - rss0
+    cold_launches = pbs_cuda.launch_delta(before, pbs_cuda.launch_counts())
+    entry = ex.fused_levels(twin)
+    if entry.graph is None:
+        raise AssertionError(f"{label}: the fused run captured no graph")
+    if not lv_launches == cold_launches == entry.launches:
+        raise AssertionError(f"{label}: launches per-level {lv_launches}, "
+                             f"fused cold {cold_launches}, recorded "
+                             f"{entry.launches}")
+    want = lv_cold if want is None else want
+    warm = {"levels": [], "fused": []}
+    outs = [lv_cold, fz_cold]
+    for _ in range(reps):
+        for kind, fuse in (("levels", False), ("fused", True)):
+            before = pbs_cuda.launch_counts()
+            out, wall, dev = _run_timed(lambda: ex.run(circuit, ct,
+                                                       fuse=fuse))
+            got = pbs_cuda.launch_delta(before, pbs_cuda.launch_counts())
+            if got != lv_launches:
+                raise AssertionError(f"{label}: a warm {kind} run counted "
+                                     f"{got}, the per-level cold run "
+                                     f"{lv_launches}")
+            outs.append(out)
+            warm[kind].append((wall, dev))
+    if not all(np.array_equal(o, want) for o in outs):
+        raise AssertionError(f"{label}: fused and per-level results differ, "
+                             f"or differ from the earlier phase")
+    row = {"levels": len(circuit.levels), "pbs": circuit.pbs_count,
+           "rotations": circuit.rotation_count,
+           "levels_cold_s": lv_cold_s, "fused_cold_s": fz_cold_s,
+           "warmup_s": entry.warmup_s, "capture_s": entry.capture_s,
+           "levels_warm_s": [w for w, _ in warm["levels"]],
+           "levels_warm_event_s": [d for _, d in warm["levels"]],
+           "fused_warm_s": [w for w, _ in warm["fused"]],
+           "fused_warm_event_s": [d for _, d in warm["fused"]],
+           "launches_per_replay": entry.launches,
+           "pool_bytes": entry.pool_bytes, "capture_rss_bytes": rss}
+    print(f"fused {label}: {row['pbs']} bootstraps ({row['rotations']} "
+          f"rotations) in {row['levels']} levels; equal fused, per-level and "
+          f"the earlier phase; cold per-level {lv_cold_s:.3f} s, fused "
+          f"{fz_cold_s:.3f} s (warm-up {entry.warmup_s:.3f} + capture and "
+          f"instantiate {entry.capture_s:.3f}); warm per-level "
+          f"{_fmt(row['levels_warm_s'])} s (events "
+          f"{_fmt(row['levels_warm_event_s'])}), fused "
+          f"{_fmt(row['fused_warm_s'])} s (events "
+          f"{_fmt(row['fused_warm_event_s'])}); launches {entry.launches} "
+          f"per run, per-level, cold and replayed alike; pool "
+          f"{entry.pool_bytes / 1e6:.1f} MB; host memory {rss / 1e6:+.1f} "
+          f"MB over the fused cold run", flush=True)
+    return row
+
+
+def fused_phase(port, pbs_cuda, full, ck, sk, dk, results, full64, dk64_bg,
+                results64):
+    """Phase 16: ``Executor.run(fuse=True)``, the whole level loop of a
+    request as one CUDA graph, against the per-level loop on fresh
+    executors (no graph cached), at the full production widths: (a) the
+    six 32-bit requests on ``cuda-fused`` (``dk``), each equal to its
+    phase-3 result; (b) two 64-bit requests on ``cuda64-bg`` (``dk64_bg``)
+    equal to phase 6; (c) one multi-value circuit; (d) ``exact_literal``
+    on ``cuda-fused``, the per-step ``cuda`` backend and ``fft``, profiled
+    warm (wall, device busy, idle share, and the kernels the trace shows,
+    held against the launches the capture recorded), with each graph's
+    nodes and instantiation seconds; then the request of the most
+    rotations on ``cuda``; (e) the default with FHE_REGEX_FUSE_LEVELS
+    unset: ``has_match`` on ``cuda-fused`` keeps the per-level loop (the
+    watchdog's "levels" key), on ``cuda`` it takes the graph ("fused") and
+    a warm replay counts #1's launches.  Every per-level run must launch
+    the backend's kernel.  Returns the numbers of the ``{"fuse": ...}``
+    line."""
+    import os
+
+    from fhe_regex_tpu_torch.ops.pbs import prepare_server_key
+    from fhe_regex_tpu_torch.regex.engine import compile_match
+    from fhe_regex_tpu_torch.regex.executor import Executor, compile_circuit
+
+    t_phase = time.perf_counter()
+    if "FHE_REGEX_FUSE_LEVELS" in os.environ:
+        raise AssertionError("FHE_REGEX_FUSE_LEVELS is set: phase 16 needs "
+                             "the default")
+
+    def circ(params, pattern, content, **kw):
+        return compile_circuit(params, *compile_match(
+            len(content), pattern, num_blocks=params.num_blocks,
+            fold="tree"), **kw)
+
+    out = {"a": {}, "b": {}}
+    # (a) the six 32-bit requests on cuda-fused
+    ex = Executor(full, dk)
+    for name, pattern, content, _ in REQUESTS:
+        ct, want = results[name]
+        out["a"][name] = _fused_vs_levels(
+            f"{full.name} {name} cuda-fused", ex,
+            lambda: circ(full, pattern, content), ct, want, pbs_cuda,
+            pbs_cuda.blind_rotate_fused)
+    # (b) two 64-bit requests on cuda64-bg
+    ex64 = Executor(full64, dk64_bg)
+    for name, pattern, content, _ in (REQUESTS[0], REQUESTS[5]):
+        ct, want = results64[name]
+        out["b"][name] = _fused_vs_levels(
+            f"{full64.name} {name} cuda64-bg", ex64,
+            lambda: circ(full64, pattern, content), ct, want, pbs_cuda,
+            pbs_cuda.blind_rotate_fused64_bg, reps=2)
+    # (c) one multi-value circuit
+    name, pattern, content, bit = REQUESTS[1]
+    mv = circ(full, pattern, content, multivalue=True)
+    if mv.rotation_count >= mv.pbs_count:
+        raise AssertionError(f"{name}: the multi-value plan shares nothing")
+    out["c"] = _fused_vs_levels(
+        f"{full.name} {name} multi-value cuda-fused", ex,
+        lambda: circ(full, pattern, content, multivalue=True),
+        results[name][0], None, pbs_cuda, pbs_cuda.blind_rotate_fused,
+        reps=2)
+    _want_bits(port.decrypt(ck, ex.run(mv, results[name][0], fuse=True)),
+               bit, f"{name} multi-value fused")
+    # (d) the host-bound backends, exact_literal, then the request of the
+    # most rotations on cuda
+    name, pattern, content, _ = REQUESTS[0]
+    ct, want = results[name]
+    out["d"] = {}
+    n = full.lwe_dimension
+    keys = {}
+    for backend, kernel in (("cuda-fused", pbs_cuda.blind_rotate_fused),
+                            ("cuda", pbs_cuda.external_product_step),
+                            ("fft", None)):
+        key = keys[backend] = (
+            dk if backend == "cuda-fused" else
+            port.executor_for(sk, backend, DEVICE)._dev_key
+            if backend == "fft" else
+            prepare_server_key(full, sk, DEVICE, backend))
+        exb = Executor(full, key)
+        c = circ(full, pattern, content)
+        row = _fused_vs_levels(f"{full.name} {name} {backend}", exb,
+                               lambda: circ(full, pattern, content), ct,
+                               want, pbs_cuda, kernel, reps=1)
+        traced = {}
+        for kind, fuse in (("levels", False), ("fused", True)):
+            wall, busy, names = _busy(lambda: exb.run(c, ct, fuse=fuse))
+            row[f"{kind}_profiled"] = {"wall_s": wall, "busy_s": busy,
+                                       "idle_share": 1 - busy / wall}
+            traced[kind] = {k: names.get(k, 0) for k in
+                            ("acc_init", "stage1", "ext_product")}
+        recorded = _our_kernels(row["launches_per_replay"], n)
+        if not traced["levels"] == traced["fused"] == recorded:
+            raise AssertionError(f"{name} {backend}: the trace shows kernels "
+                                 f"{traced}, the capture recorded launches "
+                                 f"for {recorded}")
+        row["traced_kernels"] = traced["fused"]
+        row["nodes"], row["instantiate_s"] = _graph_nodes(
+            exb.fused_levels(c), pbs_cuda)
+        lv, fz = row["levels_profiled"], row["fused_profiled"]
+        print(f"fused {name} {backend} profiled: per-level wall "
+              f"{lv['wall_s']:.4f} s, busy {lv['busy_s']:.4f} s, idle share "
+              f"{lv['idle_share']:.3f}; fused wall {fz['wall_s']:.4f} s, busy "
+              f"{fz['busy_s']:.4f} s, idle share {fz['idle_share']:.3f}; "
+              f"traced kernels {traced['fused']} per run, per-level and "
+              f"replayed alike, as the recorded launches give; graph of "
+              f"{row['nodes']} nodes, instantiated alone in "
+              f"{row['instantiate_s']} s", flush=True)
+        out["d"][backend] = row
+        del exb
+    big = max(REQUESTS, key=lambda r: circ(full, r[1], r[2]).rotation_count)
+    exb = Executor(full, keys["cuda"])
+    row = _fused_vs_levels(f"{full.name} {big[0]} cuda", exb,
+                           lambda: circ(full, big[1], big[2]),
+                           *results[big[0]], pbs_cuda,
+                           pbs_cuda.external_product_step, reps=2)
+    row["nodes"], row["instantiate_s"] = _graph_nodes(
+        exb.fused_levels(circ(full, big[1], big[2])), pbs_cuda)
+    print(f"fused {big[0]} cuda: graph of {row['nodes']} nodes, "
+          f"instantiated alone in {row['instantiate_s']} s", flush=True)
+    out["d"][f"cuda {big[0]}"] = row
+    del exb, keys
+    # (e) the default: the per-level loop on cuda-fused, the graph on cuda
+    c = circ(full, pattern, content)
+    shape = (c.pbs_count, c.num_slots, False)
+    out["e"] = {}
+    for backend, kind in (("cuda-fused", "levels"), ("cuda", "fused")):
+        exd = port.executor_for(sk, backend, DEVICE)
+        for warm in (False, True):
+            seen = dict(exd.watchdog._seen)
+            before = pbs_cuda.launch_counts()
+            res = port.has_match(sk, ct, pattern, fold="tree", device=DEVICE,
+                                 backend=backend)
+            launched = pbs_cuda.launch_delta(before,
+                                             pbs_cuda.launch_counts())
+            grew = {k: v - seen.get(k, 0) for k, v in exd.watchdog._seen.items()
+                    if v != seen.get(k, 0)}
+            graphs = len(exd._fused)
+            if (grew != {(kind,) + shape: 1} or not np.array_equal(res, want)
+                    or not launched or (kind == "levels") != (graphs == 0)
+                    or (warm and kind == "fused" and launched
+                        != exd.fused_levels(c).launches)):
+                raise AssertionError(f"default has_match {name} on {backend}:"
+                                     f" watchdog {grew}, launched "
+                                     f"{launched}, graphs {graphs}")
+        out["e"][backend] = {"watchdog_key": str((kind,) + shape),
+                             "warm_launches": launched}
+        print(f"default has_match {name} on {backend} "
+              f"(FHE_REGEX_FUSE_LEVELS unset): watchdog {(kind,) + shape}, "
+              f"a warm run launched {launched}, equal to phase 3", flush=True)
+    del ex, ex64
+    gc.collect()                   # the graphs of the fresh executors
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 16 {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def native_equals_python():
     """Phase 15, the last: ``native/libfheregex.so`` (built with ``make -C
     native`` if absent, and then removed at the end, so that a later run's
@@ -1341,7 +1709,7 @@ def daemon64(port, pbs_cuda, params, ck, sk):
 
 
 def rows_vs_plain(params, bsk, pbs_cuda, plain):
-    """Phase 16, the row-block entry of #1 (``external_product_rows``, the
+    """Phase 17, the row-block entry of #1 (``external_product_rows``, the
     step of tensor parallelism) against its plain version on the same card
     inputs, tolerance zero: at B = 8 and 256, every block of R = 6, 3, 2
     and 1 of the 6 digit rows (what a rank holds at D = 1, 2, 3, 6, cut
@@ -1397,7 +1765,7 @@ def rows_vs_plain(params, bsk, pbs_cuda, plain):
 
 
 def tp_phase(port, pbs_cuda, params, ck, sk, dk):
-    """Phase 16 (d): ``make_tp_pbs_fn`` on ``make_tp_mesh(1)`` at B = 8 and
+    """Phase 17 (d): ``make_tp_pbs_fn`` on ``make_tp_mesh(1)`` at B = 8 and
     256, each output bit-equal to ``cuda-fused``'s bootstrap of the same
     batch and decrypt-checked, with 866 launches each of the row-block #1
     and of #2 per call (counts set to 0 just before the two calls and read
@@ -1461,7 +1829,7 @@ def tp_phase(port, pbs_cuda, params, ck, sk, dk):
 
 def mesh_phase(port, pbs_cuda, plain, full, ck, sk, dk, sk64, ck64,
                results, warm3, results64, classic, served, small_keys):
-    """Phase 16: the mesh on the card, in this process: a NCCL group of
+    """Phase 17: the mesh on the card, in this process: a NCCL group of
     world 1 (``multihost.initialize`` on a free local port), ``make_mesh(1)``
     and every multi-GPU path of ``fhe_regex_tpu_torch.parallel`` on phase
     1's keys, each bit-equal to its single-card phase; the group is
@@ -1477,6 +1845,7 @@ def mesh_phase(port, pbs_cuda, plain, full, ck, sk, dk, sk64, ck64,
     from fhe_regex_tpu_torch.parallel.mesh import make_mesh
     from fhe_regex_tpu_torch.parallel.multihost import initialize
     from fhe_regex_tpu_torch.regex.engine import compile_match
+    from fhe_regex_tpu_torch.regex.executor import compile_circuit
 
     t0 = time.perf_counter()
     initialize(coordinator_address=f"127.0.0.1:{_free_port()}",
@@ -1516,6 +1885,29 @@ def mesh_phase(port, pbs_cuda, plain, full, ck, sk, dk, sk64, ck64,
             raise AssertionError("the mesh requests launched no "
                                  "blind_rotate_fused")
         out["requests"] = {"latency": lat, "blind_rotate_fused": launches}
+        # those ran the per-level loop (the default on cuda-fused), each
+        # level's all-gather issued eagerly; one more, fused by request,
+        # its all-gathers captured with the rotations
+        exm = port.executor_for(sk, device=DEVICE, mesh=mesh)
+        if exm._fused or {k[0] for k in exm.watchdog._seen} != {"levels"}:
+            raise AssertionError(f"the mesh requests did not all run the "
+                                 f"per-level loop: {exm.watchdog._seen}")
+        name, pattern, content, _ = REQUESTS[4]
+        ct, want = results[name]
+        circuit = compile_circuit(full, *compile_match(
+            len(content), pattern, num_blocks=full.num_blocks, fold="tree"))
+        res, secs = _timed(lambda: exm.run(circuit, ct, fuse=True))
+        if (not np.array_equal(res, want)
+                or exm.fused_levels(circuit).graph is None
+                or exm.watchdog._seen.get(("fused", circuit.pbs_count,
+                                           circuit.num_slots, False)) != 1):
+            raise AssertionError(f"{name} fused with the mesh != phase 3, "
+                                 f"or not through a graph")
+        out["fused"] = {"request": name, "s": secs,
+                        "graphs": len(exm._fused)}
+        print(f"request {full.name} {name} with the mesh, fuse=True: equal "
+              f"to phase 3, {secs:.3f} s; the mesh executor holds "
+              f"{len(exm._fused)} captured level loops", flush=True)
 
         # (b) the serving configuration through run_many with the mesh
         cts, classic_res, classic_s = classic
@@ -1562,9 +1954,13 @@ def mesh_phase(port, pbs_cuda, plain, full, ck, sk, dk, sk64, ck64,
         res, secs = _timed(lambda: port.has_match(
             sk64, ct64, pattern, fold="tree", device=DEVICE, mesh=mesh))
         bg64 = pbs_cuda.blind_rotate_fused64_bg.launches
-        if not np.array_equal(res, want64) or bg64 <= 0:
+        seen64 = port.executor_for(sk64, device=DEVICE,
+                                   mesh=mesh).watchdog._seen
+        if (not np.array_equal(res, want64) or bg64 <= 0
+                or {k[0] for k in seen64} != {"levels"}):
             raise AssertionError(f"64-bit {name} with the mesh != phase 6, "
-                                 f"or blind_rotate_fused64_bg launches {bg64}")
+                                 f"or blind_rotate_fused64_bg launches "
+                                 f"{bg64}, or not level by level: {seen64}")
         _want_bits(port.decrypt(ck64, res), bit, f"64-bit {name} with mesh")
         out["request64"] = {"s": secs, "blind_rotate_fused64_bg": bg64}
         print(f"request 64-bit {name} with the mesh on cuda64-bg: {secs:.3f} "
@@ -1596,7 +1992,7 @@ def mesh_phase(port, pbs_cuda, plain, full, ck, sk, dk, sk64, ck64,
     finally:
         dist.destroy_process_group()
     out["phase_s"] = time.perf_counter() - t0
-    print(f"phase 16 {out['phase_s']:.1f} s", flush=True)
+    print(f"phase 17 {out['phase_s']:.1f} s", flush=True)
     return out, (rows_err, rows, tp_launches["external_product_rows"])
 
 
@@ -1807,7 +2203,11 @@ def main() -> int:
     # ---- phase 15: the native circuit compiler == the Python builder ----
     native_equals_python()
 
-    # ---- phase 16: the mesh on the card (NCCL, world 1) ----
+    # ---- phase 16: the whole level loop as one CUDA graph ----
+    fuse = fused_phase(port, pbs_cuda, full, ck, sk, dk, results, full64,
+                       dk64_bg, results64)
+
+    # ---- phase 17: the mesh on the card (NCCL, world 1) ----
     mesh, (rows_err, rows_ms, rows_launches) = mesh_phase(
         port, pbs_cuda, plain, full, ck, sk, dk, sk64, ck64, results, warm3,
         results64, classic, served, (ck_s, sk_s))
@@ -1860,6 +2260,7 @@ def main() -> int:
     print(f"chip_smoke {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"fft": fft}))
     print(json.dumps({"mesh": mesh}))
+    print(json.dumps({"fuse": fuse}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -28,7 +28,8 @@ initial X^{-b~} rotation built on the device, or one CMUX stage at a time.
 
 Every wrapper takes its plain PyTorch version (``ops/pbs.py``,
 ``ops/pbs64.py``) on CPU tensors and launches its kernel on CUDA tensors,
-adding one to its ``launches`` count per launch; it never falls back.
+adding one to its ``launches`` count per launch; it never falls back.  A
+CUDA graph's replay counts through ``add_launches``.
 
 The library is compiled with ``nvcc`` for ``sm_90a`` at first use, into
 ``build/`` at the repository root, keyed by a hash of the sources and the
@@ -557,3 +558,21 @@ KERNELS = (blind_rotate_fused, blind_rotate_fused_bg, stage1_digits,
 def launch_counts() -> dict:
     """{wrapper name: launches} of every kernel wrapper of this module."""
     return {k.__name__: k.launches for k in KERNELS}
+
+
+def launch_delta(before: dict, after: dict) -> dict:
+    """{wrapper name: launches} made between two ``launch_counts()``, the
+    wrappers that made none left out."""
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def add_launches(delta: dict, times: int = 1) -> None:
+    """Add ``times`` x ``delta`` ({wrapper name: launches}) to the counts.
+
+    A CUDA graph replays the kernels its capture recorded without calling
+    a wrapper, and a capture calls the wrappers without launching: the
+    executor takes a capture's delta back once (``times=-1``) and adds it
+    on every replay."""
+    by_name = {k.__name__: k for k in KERNELS}
+    for name, n in delta.items():
+        by_name[name].launches += times * n

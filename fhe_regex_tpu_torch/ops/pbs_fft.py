@@ -35,6 +35,8 @@ has no multi-value rotation (``ops/mv.py``), as in the JAX package.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -114,6 +116,17 @@ def prepare_bsk_fft(params: Params, bsk: np.ndarray,
 # ---------------- blind rotation ----------------
 
 
+@functools.lru_cache(maxsize=None)
+def _device_consts(N: int, device: torch.device):
+    """(twist, its conjugate, [L, 1] limb weights) on ``device``, made once:
+    a host-to-device copy inside a CUDA graph capture would break it."""
+    tw = torch.from_numpy(_twist(N)).to(device)
+    tw_conj = torch.conj(tw).resolve_conj()     # not a lazy view each step
+    weights = torch.tensor([1 << w for w in plan_weights(PLAN)], dtype=I64,
+                           device=device)[:, None]
+    return tw, tw_conj, weights
+
+
 def blind_rotate_fft(params: Params, bsk_spec: torch.Tensor,
                      luts: torch.Tensor, lut_idx: torch.Tensor,
                      cts_ms: torch.Tensor) -> torch.Tensor:
@@ -134,11 +147,7 @@ def blind_rotate_fft(params: Params, bsk_spec: torch.Tensor,
         raise ValueError(f"spectral key {tuple(bsk_spec.shape)} "
                          f"{bsk_spec.dtype}, want {expect} complex128 for "
                          f"{params.name}")
-    dev = cts_ms.device
-    tw = torch.from_numpy(_twist(N)).to(dev)
-    tw_conj = torch.conj(tw).resolve_conj()     # not a lazy view each step
-    weights = torch.tensor([1 << w for w in plan_weights(PLAN)], dtype=I64,
-                           device=dev)[:, None]                    # [L, 1]
+    tw, tw_conj, weights = _device_consts(N, cts_ms.device)
     acc = init_accumulator(params, luts, lut_idx, cts_ms)
     for i in range(n):
         d = stage1_digits(params, acc, cts_ms[:, i])            # [B, rows, N]

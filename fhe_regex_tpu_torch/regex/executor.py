@@ -39,11 +39,13 @@ then be multiples of the mesh size (compile with min_bucket >= D).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import hashlib
 import math
 import os
+import threading
 import time
 from typing import Dict, List, Tuple
 
@@ -53,6 +55,7 @@ import torch
 from fhe_regex_tpu_torch.crypto.golden import make_lut_poly
 from fhe_regex_tpu_torch.ops.luts import (LutKey, lut_fn, mv_support_positions,
                                           mv_weights)
+from fhe_regex_tpu_torch.ops import pbs_cuda
 from fhe_regex_tpu_torch.ops.mv import (make_mv_finish_core,
                                         make_mv_rotate_core, mv_lut_table)
 from fhe_regex_tpu_torch.ops.pbs import I64, make_pbs_core, wrap_i32
@@ -154,6 +157,127 @@ def default_min_bucket() -> int:
     """Smallest level width.  8 on every device, which is also the JAX
     package's CPU value, so both packages compile identical level plans."""
     return 8
+
+
+# The backends whose level loop ``run`` takes as one CUDA graph by default,
+# from chip_smoke.py phase 16 on an NVIDIA H100 80GB HBM3 at 700 W
+# (PERF.md §6).  The per-step ``cuda`` backend, which enqueues two kernels
+# a CMUX step from Python, ran a warm exact_literal 2.1-3.6x faster as a
+# graph.  On the whole-rotation kernel backends (cuda-fused, cuda-bg,
+# cuda64, cuda64-bg) a warm replay ran from 0.5 % faster to 2.5 % slower
+# than the per-level loop and a first run cost a capture more, so they keep
+# the loop.  ``fft`` won 5-9x warm, but its three-level graph took 6.1-7.3 s
+# to capture and instantiate and held 1.4-1.5 GB of host memory; it and
+# the plain backends (``torch``, ``torch64``) keep the loop too.
+FUSE_BACKENDS = ("cuda",)
+
+# Above this many blind rotations ``run`` keeps the per-level loop by
+# default, as in the JAX package (1500, set there for its fused program's
+# compile time on a TPU).  On the H100 above, the ``cuda`` backend's graph
+# of a 680-rotation request (quantifiers: 10 levels, 27,020 nodes) still
+# ran 1.27-1.34x faster warm than its loop (PERF.md §6); beyond that
+# nothing was measured.
+FUSE_MAX_PBS = 1500
+
+# Captured level loops one executor keeps, least recently run dropped
+# first (each holds its static slab, the graph's private memory pool and
+# the graph's host memory).  Eight holds the plan mix the repo serves and
+# measures, the daemon's warm set of chip_smoke.py phase 12 (the five
+# DRIVER_CONFIGS and north_star_hit: six plans), with two to spare.  At
+# the largest pool phase 16 measured, 83.9 MB, eight hold 0.67 GB of card
+# memory; a graph's host memory measured 3-133 MB on the kernel backends
+# (PERF.md §6).
+MAX_FUSED_GRAPHS = 8
+
+
+def default_fuse(circuit, device: "torch.device | str",
+                 backend: "str | None" = None, world: int = 1) -> bool:
+    """Default of ``Executor.run(fuse=None)``: the whole level loop as one
+    CUDA graph on a CUDA device, for a backend of FUSE_BACKENDS (``backend``
+    None, the device's default, is not one), at most FUSE_MAX_PBS blind
+    rotations and a mesh of at most one rank (``world``: no graph with
+    collectives across cards has run yet); never on the CPU.
+    FHE_REGEX_FUSE_LEVELS=0|1 forces either way.  The cap is on
+    ``rotation_count``: capture and replay cost scale with the rotations
+    run, and a multi-value circuit runs fewer rotations than bootstraps."""
+    env = os.environ.get("FHE_REGEX_FUSE_LEVELS")
+    if env is not None:
+        return env == "1"
+    return (torch.device(device).type == "cuda" and backend in FUSE_BACKENDS
+            and world <= 1 and circuit.rotation_count <= FUSE_MAX_PBS)
+
+
+class FusedLevels:
+    """One circuit's whole level loop on one executor, run as one unit over
+    a static slab that every run zeroes, fills and reads back.
+
+    On CUDA the first ``run`` makes one warm-up pass of the loop over the
+    filled slab on a side stream, which computes that run's result (the
+    kernels' shared-memory opt-in, cuFFT plans, cuBLAS and NCCL set-up
+    happen there, since none may happen in a capture), then captures the
+    loop into a ``torch.cuda.CUDAGraph``, which records and does not run
+    it; every later run replays.  The graph holds the addresses of the key,
+    the LUT table, the level plans and the slab, so this object keeps the
+    plan tensors alive (``body`` closes over them) and the executor the
+    key.  A capture that fails raises: nothing falls back to the per-level
+    loop.  On the CPU ``run`` calls the loop itself.
+
+    ``launches``: the kernel launches one replay makes, by wrapper (added
+    to the wrappers' counts on each replay, ``pbs_cuda.add_launches``);
+    ``pool_bytes``: device memory the capture reserved, the graph's private
+    pool; ``warmup_s`` and ``capture_s``: the warm-up pass, and capture
+    with instantiation, in seconds."""
+
+    def __init__(self, body, slab: torch.Tensor):
+        self.body = body
+        self.slab = slab
+        self.graph = None
+        self.launches: Dict[str, int] = {}
+        self.pool_bytes = 0
+        self.warmup_s = 0.0
+        self.capture_s = 0.0
+
+    def _capture(self) -> None:
+        dev = self.slab.device
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.body()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self.warmup_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        before = pbs_cuda.launch_counts()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph):
+                self.body()
+        finally:
+            # the capture called the wrappers but launched nothing
+            delta = pbs_cuda.launch_delta(before, pbs_cuda.launch_counts())
+            pbs_cuda.add_launches(delta, -1)
+        self.capture_s = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.launches = delta
+        self.graph = graph
+
+    def run(self, fill) -> torch.Tensor:
+        """``fill(slab)`` writes this run's input rows into the zeroed slab;
+        the loop runs over it (on a first CUDA run, as the warm-up pass
+        before the capture), and the slab is returned."""
+        self.slab.zero_()
+        fill(self.slab)
+        if self.slab.device.type != "cuda":
+            self.body()
+        elif self.graph is None:
+            self._capture()
+        else:
+            self.graph.replay()
+            pbs_cuda.add_launches(self.launches)
+        return self.slab
 
 
 def _chunk_sizes(total: int, use_wide: bool) -> List[int]:
@@ -436,6 +560,11 @@ class Executor:
             from fhe_regex_tpu_torch.parallel.mesh import make_sharded_pbs_core
             self._core = make_sharded_pbs_core(dev_key, mesh)
         self._vlut = mv_lut_table(params, self.device)
+        # {circuit_fingerprint: FusedLevels}, least recently run first;
+        # the lock is held over a fused run, from the cache to the download
+        self._fused: "collections.OrderedDict[str, FusedLevels]" = (
+            collections.OrderedDict())
+        self._fused_lock = threading.Lock()
         self.last_run_stats: List[dict] = []
         self.last_run_pfail: "dict | None" = None
         wide = params.torus_bits == 64
@@ -491,6 +620,48 @@ class Executor:
         x = self._affine_combine(slab[rot_slots], rot_coefs, rot_consts)
         accs = self._mv_rotate(self._vlut, x)
         slab[out_idx] = self._mv_finish(accs, weights, leader, positions)
+
+    def _run_levels_fused(self, slab, luts, levels) -> None:
+        """The whole classic level loop, in place: the body ``run(fuse=)``
+        captures."""
+        for dev in levels:
+            self._run_level(slab, luts, *dev)
+
+    def _run_levels_fused_mv(self, slab, levels) -> None:
+        """The whole multi-value level loop, in place (each level's support
+        positions are a host tuple fixed by the plan)."""
+        for dev in levels:
+            self._run_level_mv(slab, *dev)
+
+    def fused_levels(self, circuit: CompiledCircuit) -> FusedLevels:
+        """This executor's ``FusedLevels`` of ``circuit``, made at first use.
+
+        Kept per executor (two executors never share one) and keyed by the
+        ``circuit_fingerprint``: an entry point that compiles its circuit
+        anew on every call (``has_match``) finds the graph of the same plan
+        again.  The entry holds its own plan tensors, uploaded from the
+        circuit that made it.  At most ``MAX_FUSED_GRAPHS`` are kept."""
+        fp = circuit.__dict__.get("_torch_fingerprint")
+        if fp is None:
+            fp = circuit.__dict__["_torch_fingerprint"] = (
+                circuit_fingerprint(circuit))
+        entry = self._fused.get(fp)
+        if entry is None:
+            luts, levels = self._device_plan(circuit)
+            slab = torch.zeros((circuit.num_slots,
+                                self.params.lwe_dimension + 1),
+                               dtype=self._dtype, device=self.device)
+            if circuit.multivalue:
+                body = functools.partial(self._run_levels_fused_mv, slab,
+                                         levels)
+            else:
+                body = functools.partial(self._run_levels_fused, slab, luts,
+                                         levels)
+            entry = self._fused[fp] = FusedLevels(body, slab)
+            while len(self._fused) > MAX_FUSED_GRAPHS:
+                self._fused.popitem(last=False)
+        self._fused.move_to_end(fp)
+        return entry
 
     @staticmethod
     def _check_plan(circuit: CompiledCircuit) -> None:
@@ -773,7 +944,8 @@ class Executor:
             content_blocks: "np.ndarray | None",
             profile: bool = False, checkpoint: "str | None" = None,
             checkpoint_every: int = 0,
-            resume: "str | None" = None) -> np.ndarray:
+            resume: "str | None" = None,
+            fuse: "bool | None" = None) -> np.ndarray:
         """content_blocks: [len, num_blocks, n+1] uint32 (uint64 at 64
         bits) -> radix result [num_blocks, n+1] of the same type
         ([R, num_blocks, n+1] for R roots).
@@ -790,12 +962,34 @@ class Executor:
         carries the ``circuit_fingerprint`` of its circuit, and a resume of
         any other circuit raises ValueError.
 
+        ``fuse`` runs the whole level loop as one unit (``fused_levels``):
+        on CUDA one CUDA graph, captured at the first such run of the plan
+        on this executor and replayed after; on the CPU the same loop in one
+        call.  None takes ``default_fuse`` (FHE_REGEX_FUSE_LEVELS=0|1
+        forces it).  ``profile``, ``resume`` and checkpointing need level
+        boundaries and keep the per-level loop.  Fused runs of one executor
+        share its static slabs and take turns under one lock.
+
         The elapsed time of the whole call feeds ``self.watchdog`` under
-        ("levels", pbs_count, num_slots, multivalue)."""
+        ("levels", pbs_count, num_slots, multivalue), or ("fused", ...) for
+        a fused run."""
         self._check_plan(circuit)
         t_run0 = time.perf_counter()
-        n1 = self.params.lwe_dimension + 1
         saving = checkpoint is not None and checkpoint_every > 0
+        if fuse is None:
+            fuse = default_fuse(circuit, self.device, self._dev_key.backend,
+                                1 if self.mesh is None else self.mesh.size())
+        if fuse and resume is None and not profile and not saving:
+            with self._fused_lock:
+                slab = self.fused_levels(circuit).run(
+                    lambda s: self._fill(s, content_blocks))
+                out = self._finalize(circuit, slab)
+            self.last_run_stats = []
+            # the root download waited for the whole loop
+            self.watchdog.observe(("fused", circuit.pbs_count,
+                                   circuit.num_slots, circuit.multivalue),
+                                  time.perf_counter() - t_run0)
+            return out
         fp = (circuit_fingerprint(circuit)
               if saving or resume is not None else None)
         start = 0
@@ -804,13 +998,10 @@ class Executor:
             words, start = _ckpt.load_slab(resume)
             slab = self._restore(words, circuit.num_slots)
         else:
-            slab = torch.zeros((circuit.num_slots, n1), dtype=self._dtype,
-                               device=self.device)
-            if content_blocks.size:
-                flat = np.ascontiguousarray(content_blocks.reshape(-1, n1),
-                                            dtype=self._np_u)
-                slab[1:1 + flat.shape[0]] = torch.from_numpy(
-                    flat.view(self._np_s)).to(self.device)
+            slab = torch.zeros((circuit.num_slots,
+                                self.params.lwe_dimension + 1),
+                               dtype=self._dtype, device=self.device)
+            self._fill(slab, content_blocks)
         luts, levels = self._device_plan(circuit)
         stats = []
         for li in range(start, len(levels)):
@@ -843,6 +1034,15 @@ class Executor:
                                circuit.multivalue),
                               time.perf_counter() - t_run0)
         return out
+
+    def _fill(self, slab: torch.Tensor, content_blocks: np.ndarray) -> None:
+        """The content ciphertexts into slab rows 1.. (a zeroed slab)."""
+        if content_blocks.size:
+            n1 = self.params.lwe_dimension + 1
+            flat = np.ascontiguousarray(content_blocks.reshape(-1, n1),
+                                        dtype=self._np_u)
+            slab[1:1 + flat.shape[0]] = torch.from_numpy(
+                flat.view(self._np_s)).to(self.device)
 
     def _finalize(self, circuit: CompiledCircuit, slab) -> np.ndarray:
         """Single root -> [num_blocks, n+1]; multi-root -> [R, num_blocks, n+1].

@@ -132,8 +132,9 @@ class MatchService:
             return {
                 "requests": {k: dict(v) for k, v in self._requests.items()},
                 "programs": programs,
-                # per-launch-shape EMA seconds of Executor.run ("levels")
-                # and run_many ("many"); anomalies are logged as warnings
+                # per-launch-shape EMA seconds of Executor.run ("levels",
+                # or "fused" for a level loop run as one CUDA graph) and
+                # run_many ("many"); anomalies are logged as warnings
                 "launch_ema_s": self.executor.watchdog.snapshot(),
                 "last_profile": self._last_profile,
                 "kernel_launches": pbs_cuda.launch_counts(),

@@ -1,8 +1,10 @@
 """Host-side guarantees of the PyTorch port (fhe_regex_tpu_torch).
 
 * The host modules it copies from the JAX package stay copies: the same
-  code and docstrings, with only the package name changed (comments may be
-  reworded), so the two cannot drift.
+  code and docstrings, with only the package name changed and the
+  reference checkout named relative to the repository where the JAX
+  module gives an absolute path (comments may be reworded), so the two
+  cannot drift.
 * Importing and running the port, its serving daemon included, loads
   neither jax nor fhe_regex_tpu.
 * chip_smoke.py has no CPU fallback: without a CUDA device, and alone in
@@ -35,6 +37,8 @@ COPIED = [
     "crypto/lwe.py",
     "crypto/keys.py",
     "crypto/golden.py",
+    "crypto/native_fft.py",
+    "crypto/refkey.py",
     "ops/luts.py",
     "regex/parser.py",
     "regex/circuit.py",
@@ -63,6 +67,7 @@ def test_copied_module_equals_original(rel):
     renamed = original.replace("fhe_regex_tpu.", "fhe_regex_tpu_torch.")
     renamed = renamed.replace("from fhe_regex_tpu import",
                               "from fhe_regex_tpu_torch import")
+    renamed = re.sub(r"/\w+/reference/", "reference/", renamed)
     assert ast.dump(ast.parse(copy)) == ast.dump(ast.parse(renamed))
     assert copy.count("\n") == renamed.count("\n")
 
