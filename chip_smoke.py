@@ -150,11 +150,14 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    the multi-value plan (``cuda-bg``) and the classic plan
    (``cuda-fused``), bit-equal to phase 10, contents/s beside phase 10's;
    (c) one 64-bit request on ``cuda64-bg``, bit-equal to phase 6; (d)
-   ``make_tp_pbs_fn`` on ``make_tp_mesh(1)`` at B = 8 and 256, bit-equal
-   to ``cuda-fused``'s bootstrap of the same batch, 866 launches each of
-   ``stage1_digits`` (#2) and ``external_product_rows`` (#1's device code
-   over a block of the digit rows) a call, ms per batch beside
-   ``cuda-fused``'s, device busy time and idle share profiled; the
+   ``make_tp_pbs_fn`` on ``make_tp_mesh(1)`` at B = 8 and 256, as one CUDA
+   graph (the default at world 1: a first call's warm-up pass, then the
+   capture; replays) and as the eager step loop (FHE_REGEX_FUSE_LEVELS=0),
+   both bit-equal to ``cuda-fused``'s bootstrap of the same batch, 866
+   launches each of ``stage1_digits`` (#2) and ``external_product_rows``
+   (#1's device code over a block of the digit rows) a call, counted and
+   traced, ms per batch of both beside ``cuda-fused``'s, device busy time
+   and idle share profiled, cold seconds, the graph's nodes and pool; the
    row-block entry against its plain version, tolerance zero, at B = 8 and
    256 and R = 6, 3, 2, 1 rows (the blocks of D = 1, 2, 3, 6, cut by
    slicing), its blocks summing to the whole step, timed at R = 6 and 3;
@@ -1356,11 +1359,13 @@ def _busy(fn):
 def _our_kernels(launches: dict, n: int) -> dict:
     """{device function: kernels run} for ``launches`` ({wrapper name:
     launches}) of ``ops/pbs_cuda.py``'s 32-bit wrappers: a whole rotation
-    is one ``acc_init`` and n (``stage1``, ``ext_product``) pairs."""
+    is one ``acc_init`` and n (``stage1``, ``ext_product``) pairs; the
+    row-block entry runs ``ext_product`` too."""
     rot = launches.get("blind_rotate_fused", 0)
     return {"acc_init": rot,
             "stage1": n * rot + launches.get("stage1_digits", 0),
-            "ext_product": n * rot + launches.get("external_product_step", 0)}
+            "ext_product": n * rot + launches.get("external_product_step", 0)
+            + launches.get("external_product_rows", 0)}
 
 
 def _graph_nodes(entry, pbs_cuda):
@@ -1545,7 +1550,7 @@ def fused_phase(port, pbs_cuda, full, ck, sk, dk, results, full64, dk64_bg,
                             ("fft", None)):
         key = keys[backend] = (
             dk if backend == "cuda-fused" else
-            port.executor_for(sk, backend, DEVICE)._dev_key
+            port.executor_for(sk, backend, device=DEVICE)._dev_key
             if backend == "fft" else
             prepare_server_key(full, sk, DEVICE, backend))
         exb = Executor(full, key)
@@ -1596,7 +1601,7 @@ def fused_phase(port, pbs_cuda, full, ck, sk, dk, results, full64, dk64_bg,
     shape = (c.pbs_count, c.num_slots, False)
     out["e"] = {}
     for backend, kind in (("cuda-fused", "levels"), ("cuda", "fused")):
-        exd = port.executor_for(sk, backend, DEVICE)
+        exd = port.executor_for(sk, backend, device=DEVICE)
         for warm in (False, True):
             seen = dict(exd.watchdog._seen)
             before = pbs_cuda.launch_counts()
@@ -1766,64 +1771,134 @@ def rows_vs_plain(params, bsk, pbs_cuda, plain):
 
 def tp_phase(port, pbs_cuda, params, ck, sk, dk):
     """Phase 17 (d): ``make_tp_pbs_fn`` on ``make_tp_mesh(1)`` at B = 8 and
-    256, each output bit-equal to ``cuda-fused``'s bootstrap of the same
-    batch and decrypt-checked, with 866 launches each of the row-block #1
-    and of #2 per call (counts set to 0 just before the two calls and read
-    just after); then two warm calls of each timed, and one of each
-    profiled (device busy time, idle share)."""
-    from chip_profile import _traced, busy_us
+    256, as one CUDA graph (the default at world 1) and as the eager step
+    loop (FHE_REGEX_FUSE_LEVELS=0).  The main path is the graph's first
+    call at each B (its warm-up pass gives the result, then the capture),
+    counts set to 0 just before the two calls and read just after.  Every
+    call, eager, first or replayed, must count 866 launches each of #2 and
+    the row-block #1 (a replay adds those its capture recorded).  Then, at
+    each B, an eager cold call; the outputs bit-equal to each other and to
+    ``cuda-fused``'s bootstrap of the same batch, and decrypt-checked; two
+    warm calls of each (eager, graph, graph, eager) and of ``cuda-fused``
+    timed; one warm call of each profiled (wall, device busy, idle share),
+    the kernels traced in both equal to those the capture recorded; the
+    graph's nodes and instantiation seconds (a second capture), its pool
+    bytes, warm-up and capture seconds."""
+    import os
+
     from fhe_regex_tpu_torch.crypto import lwe
     from fhe_regex_tpu_torch.ops.pbs import make_pbs_core
     from fhe_regex_tpu_torch.parallel.tensor import (make_tp_mesh,
                                                      make_tp_pbs_fn)
 
+    if "FHE_REGEX_FUSE_LEVELS" in os.environ:
+        raise AssertionError("FHE_REGEX_FUSE_LEVELS is set: phase 17 (d) "
+                             "needs the default")
     n = params.lwe_dimension
     tp = make_tp_pbs_fn(params, sk, make_tp_mesh(1))
+
+    def tp_eager(*args):
+        os.environ["FHE_REGEX_FUSE_LEVELS"] = "0"
+        try:
+            return tp(*args)
+        finally:
+            del os.environ["FHE_REGEX_FUSE_LEVELS"]
+
+    per_call = {"stage1_digits": n, "external_product_rows": n}
+
+    def call(fn, args, label):
+        before = pbs_cuda.launch_counts()
+        out, secs = _timed(lambda: fn(*args))
+        got = pbs_cuda.launch_delta(before, pbs_cuda.launch_counts())
+        if got != per_call:
+            raise AssertionError(f"TP {label}: launches {got}, want "
+                                 f"{per_call}")
+        return out, secs
+
     core = make_pbs_core(dk)
     inputs = {B: _rotation_inputs(params, ck, B, seed=1600 + B)
               for B in (8, 256)}
+    args = {B: (x["luts"], x["lut_idx"], x["cts"]) for B, x in inputs.items()}
     _reset_counts(pbs_cuda)
-    outs = {}
-    for B, x in inputs.items():
-        before = (pbs_cuda.stage1_digits.launches,
-                  pbs_cuda.external_product_rows.launches)
-        outs[B] = tp(x["luts"], x["lut_idx"], x["cts"])
-        torch.cuda.synchronize()
-        steps = (pbs_cuda.stage1_digits.launches - before[0],
-                 pbs_cuda.external_product_rows.launches - before[1])
-        if steps != (n, n):
-            raise AssertionError(f"TP B={B}: launches (stage1_digits, "
-                                 f"external_product_rows) {steps}, want "
-                                 f"({n}, {n})")
-    launches = {"stage1_digits": pbs_cuda.stage1_digits.launches,
-                "external_product_rows":
-                    pbs_cuda.external_product_rows.launches}
+    cold = {B: call(tp, args[B], f"B={B} graph, first call")
+            for B in inputs}
+    launches = {k: pbs_cuda.launch_counts()[k] for k in per_call}
+    entries = {shape[2][0]: e for shape, e in tp.graphs.items()}
+    if sorted(entries) != [8, 256] or any(
+            e.graph is None or e.launches != per_call
+            for e in entries.values()):
+        raise AssertionError(f"TP: graphs {list(tp.graphs)}, want one "
+                             f"captured at B = 8 and at 256 recording "
+                             f"{per_call}")
     numbers = {}
     for B, x in inputs.items():
-        args = (x["luts"], x["lut_idx"], x["cts"])
-        want = core(*args)
-        if not torch.equal(outs[B], want):
-            raise AssertionError(f"TP B={B}: != cuda-fused")
-        o = outs[B].cpu().numpy().view(np.uint32)
+        want = core(*args[B])
+        entry = entries[B]
+        outs = [cold[B][0]]
+        eager_out, eager_cold = call(tp_eager, args[B], f"B={B} eager")
+        outs.append(eager_out)
+        warm = {"eager": [], "graph": []}
+        for kind in ("eager", "graph", "graph", "eager"):
+            out, secs = call(tp_eager if kind == "eager" else tp, args[B],
+                             f"B={B} {kind}, warm")
+            outs.append(out)
+            warm[kind].append(secs)
+        if not all(torch.equal(o, want) for o in outs):
+            raise AssertionError(f"TP B={B}: the graph, the eager loop and "
+                                 f"cuda-fused differ")
+        o = want.cpu().numpy().view(np.uint32)
         dec = [lwe.decrypt_lwe(params, ck.lwe_key, o[i]) for i in range(B)]
         exp = [x["fs"][x["idx"][i]](int(m)) for i, m in enumerate(x["msgs"])]
         if dec != exp:
             raise AssertionError(f"TP B={B}: wrong decryptions")
-        tp_s = [_timed(lambda: tp(*args))[1] for _ in range(2)]
-        fused_s = [_timed(lambda: core(*args))[1] for _ in range(2)]
-        wall, events = _traced(f"TP B={B}", lambda: tp(*args))
-        busy = busy_us(events) / 1e6
-        numbers[B] = {"tp_ms": [t * 1e3 for t in tp_s],
+        fused_s = [_timed(lambda: core(*args[B]))[1] for _ in range(2)]
+        prof, traced = {}, {}
+        for kind, fn in (("eager", tp_eager), ("graph", tp)):
+            wall, busy, names = _busy(lambda: fn(*args[B]))
+            prof[kind] = (wall, busy, 1 - busy / wall)
+            traced[kind] = {k: names.get(k, 0) for k in
+                            ("acc_init", "stage1", "ext_product")}
+        recorded = _our_kernels(entry.launches, n)
+        if not traced["eager"] == traced["graph"] == recorded:
+            raise AssertionError(f"TP B={B}: the trace shows kernels "
+                                 f"{traced}, the capture recorded launches "
+                                 f"for {recorded}")
+        nodes, inst_s = _graph_nodes(entry, pbs_cuda)
+        numbers[B] = {"tp_ms": [t * 1e3 for t in warm["graph"]],
                       "cuda_fused_ms": [t * 1e3 for t in fused_s],
-                      "profiled_wall_s": wall, "busy_s": busy,
-                      "idle_share": 1 - busy / wall}
-        print(f"TP {params.name} D=1 B={B}: equal to cuda-fused, all "
-              f"decrypt; {n} launches each of stage1_digits and "
-              f"external_product_rows a call; ms per batch "
-              f"{_fmt(numbers[B]['tp_ms'])} (cuda-fused "
-              f"{_fmt(numbers[B]['cuda_fused_ms'])}); profiled: wall "
-              f"{wall:.3f} s, device busy {busy:.3f} s, idle share "
-              f"{1 - busy / wall:.3f}", flush=True)
+                      "profiled_wall_s": prof["graph"][0],
+                      "busy_s": prof["graph"][1],
+                      "idle_share": prof["graph"][2],
+                      "eager_ms": [t * 1e3 for t in warm["eager"]],
+                      "eager_profiled_wall_s": prof["eager"][0],
+                      "eager_busy_s": prof["eager"][1],
+                      "eager_idle_share": prof["eager"][2],
+                      "cold_s": cold[B][1], "eager_cold_s": eager_cold,
+                      "warmup_s": entry.warmup_s,
+                      "capture_s": entry.capture_s,
+                      "nodes": nodes, "instantiate_s": inst_s,
+                      "pool_bytes": entry.pool_bytes,
+                      "traced_kernels": traced["graph"],
+                      # the profiler slows a replay; the warm calls above
+                      # ran untraced
+                      "warm_over_busy": min(warm["graph"]) / prof["graph"][1]}
+        r = numbers[B]
+        print(f"TP {params.name} D=1 B={B}: graph, eager loop and cuda-fused "
+              f"equal, all decrypt; {n} launches each of stage1_digits and "
+              f"external_product_rows a call, eager, first and replayed, "
+              f"and traced {traced['graph']}; warm ms per batch: graph "
+              f"{_fmt(r['tp_ms'])}, eager {_fmt(r['eager_ms'])}, "
+              f"cuda-fused {_fmt(r['cuda_fused_ms'])}; profiled graph wall "
+              f"{prof['graph'][0]:.4f} s, busy {prof['graph'][1]:.4f} s, "
+              f"idle share {prof['graph'][2]:.3f} (warm call "
+              f"{r['warm_over_busy']:.3f}x busy); eager wall "
+              f"{prof['eager'][0]:.4f} s, busy {prof['eager'][1]:.4f} s, "
+              f"idle share {prof['eager'][2]:.3f}; cold: graph "
+              f"{cold[B][1]:.3f} s (warm-up {entry.warmup_s:.3f} + capture "
+              f"and instantiate {entry.capture_s:.3f}), eager "
+              f"{eager_cold:.3f} s; graph of {nodes} nodes, instantiated "
+              f"alone in {inst_s} s, pool {entry.pool_bytes / 1e6:.1f} MB",
+              flush=True)
     return launches, numbers
 
 
@@ -1923,11 +1998,11 @@ def mesh_phase(port, pbs_cuda, plain, full, ck, sk, dk, sk64, ck64,
             raise AssertionError("serving plans with the mesh: want "
                                  "multi-value and classic")
         _reset_counts(pbs_cuda)
-        ex_bg = port.executor_for(sk, "cuda-bg", DEVICE, mesh=mesh)
+        ex_bg = port.executor_for(sk, "cuda-bg", device=DEVICE, mesh=mesh)
         r, cold = _timed(lambda: ex_bg.run_many(mv, cts))
         r2, warm = _timed(lambda: ex_bg.run_many(mv, cts))
         bg = pbs_cuda.blind_rotate_fused_bg.launches
-        ex_f = port.executor_for(sk, "cuda-fused", DEVICE, mesh=mesh)
+        ex_f = port.executor_for(sk, "cuda-fused", device=DEVICE, mesh=mesh)
         r3, cl_s = _timed(lambda: ex_f.run_many(cl, cts))
         if not (np.array_equal(r, mv_res) and np.array_equal(r2, mv_res)
                 and np.array_equal(r3, classic_res)) or bg <= 0:

@@ -230,8 +230,8 @@ def trivial_encrypt_str(params: Params, s: str) -> np.ndarray:
 
 
 def executor_for(server_key: ServerKey, backend: Optional[str] = None,
-                 device: "torch.device | str | None" = None,
-                 mesh=None) -> Executor:
+                 mesh=None,
+                 device: "torch.device | str | None" = None) -> Executor:
     """A (cached) Executor bound to this server key's material on `device`
     (None: CUDA, a RuntimeError without one; "cpu" for the plain path).
     With ``mesh`` it shards each level over the mesh's ranks, on this
@@ -283,8 +283,8 @@ def has_match(server_key: ServerKey, ct_content: np.ndarray, pattern: str,
               fold: str = "reference",
               engine: Optional[str] = None,
               branch_budget: Optional[int] = None,
-              device: "torch.device | str | None" = None,
-              multivalue: Optional[bool] = None) -> np.ndarray:
+              multivalue: Optional[bool] = None,
+              device: "torch.device | str | None" = None) -> np.ndarray:
     """Encrypted match: does `pattern` match the encrypted content?
 
     Mirrors ``engine::has_match`` (engine.rs:8-42): returns a radix
@@ -306,7 +306,7 @@ def has_match(server_key: ServerKey, ct_content: np.ndarray, pattern: str,
                                     pattern, fold, engine, branch_budget)
     circuit = _compile(server_key, builder, root, backend, device,
                        multivalue, packed=False, mesh=mesh)
-    executor = executor_for(server_key, backend, device, mesh)
+    executor = executor_for(server_key, backend, mesh, device=device)
     result = executor.run(circuit, np.ascontiguousarray(ct_content))
     logger.info(
         "%d ciphertext operations, %d cache hits (%d bootstraps in %d levels)",
@@ -344,7 +344,7 @@ def has_match_many(server_key: ServerKey, ct_contents, pattern: str,
                                     pattern, fold, engine, branch_budget)
     circuit = _compile(server_key, builder, root, backend, device,
                        multivalue, packed=True)
-    executor = executor_for(server_key, backend, device)
+    executor = executor_for(server_key, backend, device=device)
     result = executor.run_many(circuit, contents, wide_batch=wide_batch)
     logger.info(
         "%d contents x (%d ops, %d bootstraps, %d rotations in %d levels)",
@@ -356,8 +356,8 @@ def has_match_many(server_key: ServerKey, ct_contents, pattern: str,
 
 def run_circuit(server_key: ServerKey, builder: CircuitBuilder, root,
                 ct_content: np.ndarray, backend: Optional[str] = None,
-                device: "torch.device | str | None" = None,
-                mesh=None) -> np.ndarray:
+                mesh=None,
+                device: "torch.device | str | None" = None) -> np.ndarray:
     """One-shot compile + execute of a custom CircuitBuilder DAG.
 
     ``root`` is one Node (result ``[num_blocks, n+1]``) or a list of Nodes
@@ -372,7 +372,7 @@ def run_circuit(server_key: ServerKey, builder: CircuitBuilder, root,
         root = builder.force_node(root)
     circuit = compile_circuit(params, builder, root,
                               min_bucket=_min_bucket(mesh))
-    executor = executor_for(server_key, backend, device, mesh)
+    executor = executor_for(server_key, backend, mesh, device=device)
     return executor.run(circuit, np.ascontiguousarray(ct_content))
 
 
@@ -408,7 +408,7 @@ def _run_roots(server_key, backend, device, multivalue, builder, roots,
     """One content through a multi-root circuit: [R, num_blocks, n+1]."""
     circuit = _compile(server_key, builder, roots, backend, device,
                        multivalue, packed=False, mesh=mesh)
-    executor = executor_for(server_key, backend, device, mesh)
+    executor = executor_for(server_key, backend, mesh, device=device)
     result = executor.run(circuit, np.ascontiguousarray(ct_content))
     logger.info(
         "%d %s: %d ciphertext operations, %d cache hits "
@@ -425,7 +425,7 @@ def _run_roots_many(server_key, backend, device, multivalue, builder, roots,
     the multi-value plan by the packed paths' auto rule."""
     circuit = _compile(server_key, builder, roots, backend, device,
                        multivalue, packed=True)
-    executor = executor_for(server_key, backend, device)
+    executor = executor_for(server_key, backend, device=device)
     result = executor.run_many(circuit, contents, wide_batch=wide_batch)
     logger.info(
         "%d contents x %d %s (%d ops, %d bootstraps in %d levels)",
@@ -530,7 +530,7 @@ def _or_reduce_bits(server_key: ServerKey, backend: Optional[str],
     from fhe_regex_tpu_torch.ops.luts import LUT_OR2, LUT_OR3, lut_fn
 
     params = server_key.params
-    ex = executor_for(server_key, backend, device)
+    ex = executor_for(server_key, backend, device=device)
     dt = ex._np_u
     luts = np.stack([make_lut_poly(params, lut_fn(LUT_OR2)),
                      make_lut_poly(params, lut_fn(LUT_OR3))])
@@ -726,7 +726,7 @@ def count_matches(server_key: ServerKey, ct_content: np.ndarray,
     digit_roots = [Node(("count", i), d) for i, d in enumerate(digits)]
     circuit = compile_circuit(params, builder, digit_roots,
                               min_bucket=default_min_bucket())
-    executor = executor_for(server_key, backend, device)
+    executor = executor_for(server_key, backend, device=device)
     result = executor.run(circuit, np.ascontiguousarray(ct_content))
     logger.info(
         "count over %d positions: %d digits (%d bootstraps in %d levels)",

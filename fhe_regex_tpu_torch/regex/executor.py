@@ -55,13 +55,13 @@ import torch
 from fhe_regex_tpu_torch.crypto.golden import make_lut_poly
 from fhe_regex_tpu_torch.ops.luts import (LutKey, lut_fn, mv_support_positions,
                                           mv_weights)
-from fhe_regex_tpu_torch.ops import pbs_cuda
 from fhe_regex_tpu_torch.ops.mv import (make_mv_finish_core,
                                         make_mv_rotate_core, mv_lut_table)
 from fhe_regex_tpu_torch.ops.pbs import I64, make_pbs_core, wrap_i32
 from fhe_regex_tpu_torch.params import Params
 from fhe_regex_tpu_torch.regex.circuit import BitVal, CircuitBuilder, Node, PbsOp
 from fhe_regex_tpu_torch.utils import checkpoint as _ckpt
+from fhe_regex_tpu_torch.utils.cuda_graph import CapturedBody, forced_fuse
 from fhe_regex_tpu_torch.utils.watchdog import LaunchWatchdog
 
 U32 = np.uint32
@@ -197,72 +197,34 @@ def default_fuse(circuit, device: "torch.device | str",
     None, the device's default, is not one), at most FUSE_MAX_PBS blind
     rotations and a mesh of at most one rank (``world``: no graph with
     collectives across cards has run yet); never on the CPU.
-    FHE_REGEX_FUSE_LEVELS=0|1 forces either way.  The cap is on
+    FHE_REGEX_FUSE_LEVELS=0|1 forces either way (``forced_fuse``; the
+    same variable forces the tensor-parallel bootstrap's graph,
+    ``parallel.tensor.default_tp_graph``).  The cap is on
     ``rotation_count``: capture and replay cost scale with the rotations
     run, and a multi-value circuit runs fewer rotations than bootstraps."""
-    env = os.environ.get("FHE_REGEX_FUSE_LEVELS")
-    if env is not None:
-        return env == "1"
+    forced = forced_fuse()
+    if forced is not None:
+        return forced
     return (torch.device(device).type == "cuda" and backend in FUSE_BACKENDS
             and world <= 1 and circuit.rotation_count <= FUSE_MAX_PBS)
 
 
-class FusedLevels:
+class FusedLevels(CapturedBody):
     """One circuit's whole level loop on one executor, run as one unit over
     a static slab that every run zeroes, fills and reads back.
 
-    On CUDA the first ``run`` makes one warm-up pass of the loop over the
-    filled slab on a side stream, which computes that run's result (the
-    kernels' shared-memory opt-in, cuFFT plans, cuBLAS and NCCL set-up
-    happen there, since none may happen in a capture), then captures the
-    loop into a ``torch.cuda.CUDAGraph``, which records and does not run
-    it; every later run replays.  The graph holds the addresses of the key,
-    the LUT table, the level plans and the slab, so this object keeps the
-    plan tensors alive (``body`` closes over them) and the executor the
-    key.  A capture that fails raises: nothing falls back to the per-level
-    loop.  On the CPU ``run`` calls the loop itself.
-
-    ``launches``: the kernel launches one replay makes, by wrapper (added
-    to the wrappers' counts on each replay, ``pbs_cuda.add_launches``);
-    ``pool_bytes``: device memory the capture reserved, the graph's private
-    pool; ``warmup_s`` and ``capture_s``: the warm-up pass, and capture
-    with instantiation, in seconds."""
+    On CUDA the loop is a ``CapturedBody``: the first ``run`` makes its
+    warm-up pass over the filled slab, which computes that run's result,
+    then captures it; every later run replays.  The graph holds the
+    addresses of the key, the LUT table, the level plans and the slab, so
+    this object keeps the plan tensors alive (``body`` closes over them)
+    and the executor the key.  A capture that fails raises: nothing falls
+    back to the per-level loop.  On the CPU ``run`` calls the loop
+    itself."""
 
     def __init__(self, body, slab: torch.Tensor):
-        self.body = body
+        super().__init__(body, slab.device)
         self.slab = slab
-        self.graph = None
-        self.launches: Dict[str, int] = {}
-        self.pool_bytes = 0
-        self.warmup_s = 0.0
-        self.capture_s = 0.0
-
-    def _capture(self) -> None:
-        dev = self.slab.device
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            self.body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        self.warmup_s = time.perf_counter() - t0
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        before = pbs_cuda.launch_counts()
-        t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph):
-                self.body()
-        finally:
-            # the capture called the wrappers but launched nothing
-            delta = pbs_cuda.launch_delta(before, pbs_cuda.launch_counts())
-            pbs_cuda.add_launches(delta, -1)
-        self.capture_s = time.perf_counter() - t0
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.launches = delta
-        self.graph = graph
 
     def run(self, fill) -> torch.Tensor:
         """``fill(slab)`` writes this run's input rows into the zeroed slab;
@@ -272,11 +234,8 @@ class FusedLevels:
         fill(self.slab)
         if self.slab.device.type != "cuda":
             self.body()
-        elif self.graph is None:
-            self._capture()
         else:
-            self.graph.replay()
-            pbs_cuda.add_launches(self.launches)
+            self.launch()
         return self.slab
 
 

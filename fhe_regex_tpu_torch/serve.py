@@ -82,7 +82,7 @@ class MatchService:
         self.server_key = server_key
         self.params = server_key.params
         self.backend = backend
-        self.executor = executor_for(server_key, backend, device)
+        self.executor = executor_for(server_key, backend, device=device)
         self.device = self.executor.device
         # a backend without a multi-value rotation (fft) serves the
         # classic plan where a request leaves the plan to the daemon

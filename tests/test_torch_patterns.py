@@ -106,6 +106,43 @@ def test_engine_in_the_jax_place(name):
             "engine"].default is None
 
 
+PUBLIC = [n for n in J.__all__ if inspect.isfunction(getattr(J, n))]
+
+
+@pytest.mark.parametrize("name", PUBLIC + ["serve.MatchService"])
+def test_jax_parameters_are_a_prefix(name):
+    """Every public function of the JAX package, and its daemon's
+    MatchService, takes its parameters first in the port, with the same
+    names and kinds, so a call that binds positionally in JAX binds alike
+    in the port; the port's own (``device``) come after them."""
+    from fhe_regex_tpu import serve as jserve
+    from fhe_regex_tpu_torch import serve as tserve
+
+    def params(module, serve):
+        obj = (getattr(serve, name.split(".")[1]) if "." in name
+               else getattr(module, name))
+        return [(p.name, p.kind)
+                for p in inspect.signature(obj).parameters.values()]
+
+    jparams = params(J, jserve)
+    assert params(port, tserve)[:len(jparams)] == jparams
+
+
+def test_positional_has_match_equals_jax():
+    """``has_match`` with every JAX parameter given by position (fold
+    "tree", the Python compiler, multivalue False) at TEST_PARAMS gives
+    the JAX package's ciphertext bit for bit."""
+    from fhe_regex_tpu.params import TEST_PARAMS
+
+    ck, sk = J.gen_keys(TEST_PARAMS, seed=1)
+    ct = J.encrypt_str(ck, "abc")
+    args = ("/b/", None, None, "tree", "python", None, False)
+    want = J.has_match(sk, ct, *args)
+    got = port.has_match(server_key_from_jax(sk), ct, *args, device="cpu")
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert J.decrypt(ck, want) == 1
+
+
 @pytest.mark.parametrize("engine", ENGINES)
 @pytest.mark.parametrize("name", ENTRY_POINTS)
 def test_engine_entry_point_equals_jax(both, name, engine):
