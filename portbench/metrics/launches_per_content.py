@@ -1,0 +1,7 @@
+"""Kernel launches over the window per content (/stats kernel_launches)."""
+
+from portbench.measure import launches_per_content
+
+
+def read(rec):
+    return launches_per_content(rec)
