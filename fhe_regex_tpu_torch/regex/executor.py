@@ -30,6 +30,13 @@ it; a checkpoint carries the ``circuit_fingerprint`` of the plan that saved
 it, and a resume under any other plan is refused.  Every run feeds the
 executor's ``LaunchWatchdog`` (``utils/watchdog.py``).
 
+Every run opens the spans of ``utils/trace.py``: ``executor.run`` /
+``executor.run_many`` over the call, ``executor.fill`` (slab and content
+upload), one ``executor.level`` a level, packed step or graph replay
+(``_Steps``), and ``executor.finalize`` (the root download, which waits
+for the device, and the result's assembly).  Each step's rows go to the
+executor's ``launches_by_width`` counters.
+
 With a ``mesh`` (``parallel/mesh.py``) every rank runs the same executor on
 the same inputs: each level's bootstraps (or rotations and derived
 extracts) split into one contiguous row block per rank, and the blocks are
@@ -40,6 +47,7 @@ then be multiples of the mesh size (compile with min_bucket >= D).
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import functools
 import hashlib
@@ -61,6 +69,7 @@ from fhe_regex_tpu_torch.ops.pbs import I64, make_pbs_core, wrap_i32
 from fhe_regex_tpu_torch.params import Params
 from fhe_regex_tpu_torch.regex.circuit import BitVal, CircuitBuilder, Node, PbsOp
 from fhe_regex_tpu_torch.utils import checkpoint as _ckpt
+from fhe_regex_tpu_torch.utils import trace
 from fhe_regex_tpu_torch.utils.cuda_graph import CapturedBody, forced_fuse
 from fhe_regex_tpu_torch.utils.watchdog import LaunchWatchdog
 
@@ -226,16 +235,19 @@ class FusedLevels(CapturedBody):
         super().__init__(body, slab.device)
         self.slab = slab
 
-    def run(self, fill) -> torch.Tensor:
+    def run(self, fill, step=contextlib.nullcontext()) -> torch.Tensor:
         """``fill(slab)`` writes this run's input rows into the zeroed slab;
         the loop runs over it (on a first CUDA run, as the warm-up pass
-        before the capture), and the slab is returned."""
-        self.slab.zero_()
-        fill(self.slab)
-        if self.slab.device.type != "cuda":
-            self.body()
-        else:
-            self.launch()
+        before the capture) inside the context ``step``, and the slab is
+        returned."""
+        with trace.Span("executor.fill"):
+            self.slab.zero_()
+            fill(self.slab)
+        with step:
+            if self.slab.device.type != "cuda":
+                self.body()
+            else:
+                self.launch()
         return self.slab
 
 
@@ -269,6 +281,73 @@ def _bucket(w: int, min_bucket: int = 8) -> int:
     while b < w:
         b *= 2
     return b
+
+
+def _level_rows(circuit: "CompiledCircuit") -> List[Tuple[int, int]]:
+    """(rows launched, rows needed) of each level of ``run``: the batch the
+    level hands the blind rotation (the multi-value rotation batch on that
+    plan) and its active rows.  Cached on the circuit."""
+    rows = circuit.__dict__.get("_torch_level_rows")
+    if rows is None:
+        rows = circuit.__dict__["_torch_level_rows"] = [
+            (int(lv.rot_slots.shape[0]), int(lv.mv_rot_count))
+            if circuit.multivalue else
+            (int(lv.lut_idx.shape[0]), int((lv.lut_idx >= 0).sum()))
+            for lv in circuit.levels]
+    return rows
+
+
+class _Steps:
+    """The ``executor.level`` spans of one run: one a level (``run``), a
+    packed step (``run_many``) or a graph replay.  Each step's rows go to
+    the executor's ``launches_by_width`` under its key, the widths of its
+    rotation launches joined by "+".
+
+    With ``timed`` (the request's recorder records, or ``profile=True``)
+    each step also gets its device seconds, in its span and its counters:
+    on CUDA from a pair of events around it on the current stream, read
+    by ``close`` after the run's root download; on the CPU, whose plain
+    path is synchronous, its host seconds.  Untimed, no event is made and
+    nothing waits."""
+
+    def __init__(self, executor: "Executor", timed: bool):
+        self._ex = executor
+        self._timed = timed
+        self._events = timed and executor.device.type == "cuda"
+        self._pending: list = []
+
+    @contextlib.contextmanager
+    def step(self, key: str, launched: int, needed: int):
+        ev = None
+        if self._events:
+            stream = torch.cuda.current_stream(self._ex.device)
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record(stream)
+        with trace.Span("executor.level", width=key, rows_launched=launched,
+                        rows_needed=needed) as sp:
+            yield
+        if ev is not None:
+            ev[1].record(stream)
+        if self._timed:
+            self._pending.append((sp, ev))
+        else:
+            self._ex._count_step(key, launched, needed, None)
+
+    def close(self) -> List[float]:
+        """The timed steps' device seconds, in order, once the run's
+        download has waited for the device."""
+        if self._pending and self._pending[-1][1] is not None:
+            self._pending[-1][1][1].synchronize()   # a run with no download
+        out = []
+        for sp, ev in self._pending:
+            s = ev[0].elapsed_time(ev[1]) / 1e3 if ev else sp.seconds
+            sp.attrs["device_s"] = s
+            self._ex._count_step(sp.attrs["width"], sp.attrs["rows_launched"],
+                                 sp.attrs["rows_needed"], s)
+            out.append(s)
+        self._pending = []
+        return out
 
 
 def active_bsk_drop(params: Params, backend: "str | None" = None,
@@ -526,10 +605,35 @@ class Executor:
         self._fused_lock = threading.Lock()
         self.last_run_stats: List[dict] = []
         self.last_run_pfail: "dict | None" = None
+        # {step key: {"steps", "rows_launched", "rows_needed", "device_s"}}
+        # over every run; device_s only of timed steps (``_Steps``)
+        self._by_width: Dict[str, dict] = {}
+        self._by_width_lock = threading.Lock()
         wide = params.torus_bits == 64
         self._dtype = I64 if wide else torch.int32
         self._np_u = np.uint64 if wide else U32       # the bits at the API
         self._np_s = np.int64 if wide else np.int32   # the same, as tensors
+
+    def _count_step(self, key: str, launched: int, needed: int,
+                    device_s: "float | None") -> None:
+        with self._by_width_lock:
+            row = self._by_width.setdefault(key, {
+                "steps": 0, "rows_launched": 0, "rows_needed": 0,
+                "device_s": 0.0})
+            row["steps"] += 1
+            row["rows_launched"] += launched
+            row["rows_needed"] += needed
+            if device_s is not None:
+                row["device_s"] += device_s
+
+    def launches_by_width(self) -> Dict[str, dict]:
+        """The rows of every step run so far by step key (the widths of its
+        rotation launches, joined by "+"): ``steps``, ``rows_launched``
+        (the batches handed to the blind rotation), ``rows_needed`` (their
+        active rows) and ``device_s`` (the device seconds of the steps that
+        were timed: recording on, or ``profile=True``)."""
+        with self._by_width_lock:
+            return {k: dict(v) for k, v in self._by_width.items()}
 
     @functools.cached_property
     def _mv_rotate(self):
@@ -675,7 +779,7 @@ class Executor:
             return cache[key]
         S = circuit.num_slots
         offs = (np.arange(C, dtype=np.int32) * S)[:, None]
-        chunks = []
+        chunks, rows = [], []
         for lv in circuit.levels:
             act = lv.lut_idx >= 0
             a_slots, a_coefs = lv.in_slots[act], lv.in_coefs[act]
@@ -697,12 +801,14 @@ class Executor:
             for w in sizes:
                 sl = slice(c0, c0 + w)
                 c0 += w
+                rows.append((str(w), w, int((t_lut[sl] >= 0).sum())))
                 chunks.append((self._upload(t_slots[sl], I64),
                                self._upload(t_coefs[sl]),
                                self._upload(t_consts[sl]),
                                self._upload(t_lut[sl]),
                                self._upload(t_out[sl], I64)))
         cache[key] = chunks
+        circuit.__dict__.setdefault("_torch_rows_many", {})[key] = rows
         return chunks
 
     @staticmethod
@@ -741,7 +847,7 @@ class Executor:
             return cache[key]
         S = circuit.num_slots
         dev = self._upload
-        steps = []
+        steps, rows = [], []
         for lv in circuit.levels:
             act = lv.lut_idx >= 0
             R = lv.mv_rot_count
@@ -759,6 +865,7 @@ class Executor:
                 t_rk = np.tile(r_consts, g)
                 sizes = _chunk_sizes(g * R, wide_batch)
                 pad = sum(sizes) - g * R
+                rows.append(("+".join(map(str, sizes)), sum(sizes), g * R))
                 t_rs = np.concatenate([t_rs, np.zeros((pad, 3), np.int32)])
                 t_rc = np.concatenate([t_rc, np.zeros((pad, 3), np.int32)])
                 t_rk = np.concatenate([t_rk, np.zeros(pad, np.int32)])
@@ -781,6 +888,7 @@ class Executor:
                 steps.append((rot_chunks, (dev(t_w), dev(t_ld, I64),
                                            dev(t_out, I64), lv.mv_positions)))
         cache[key] = steps
+        circuit.__dict__.setdefault("_torch_rows_many", {})[key] = rows
         return steps
 
     def _restore(self, words: np.ndarray, rows: int) -> torch.Tensor:
@@ -822,7 +930,13 @@ class Executor:
         multivalue, wide_batch).
         """
         self._check_plan(circuit)
-        t_run0 = time.perf_counter()
+        with trace.Span("executor.run_many") as run_span:
+            out = self._run_many(circuit, contents, wide_batch, checkpoint,
+                                 checkpoint_every, resume, run_span.start_ns)
+        return out
+
+    def _run_many(self, circuit, contents, wide_batch, checkpoint,
+                  checkpoint_every, resume, t_run0: int) -> np.ndarray:
         if wide_batch is None:
             env = os.environ.get("FHE_REGEX_WIDE_BATCH")
             wide_batch = (env == "1" if env is not None
@@ -835,6 +949,8 @@ class Executor:
         mv = circuit.multivalue
         steps = (self._device_chunks_many_mv(circuit, C, wide_batch) if mv
                  else self._device_chunks_many(circuit, C, wide_batch))
+        rows = circuit.__dict__["_torch_rows_many"][
+            (C, wide_batch, str(self.device))]
         saving = checkpoint is not None and checkpoint_every > 0
         fp = (circuit_fingerprint(circuit, C, wide_batch, len(steps))
               if saving or resume is not None else None)
@@ -852,51 +968,59 @@ class Executor:
             _check_fingerprint(resume, fp)
             slab = self._restore(words, C * S)
         else:
-            slab = torch.zeros((C * S, n1), dtype=self._dtype,
-                               device=self.device)
-            if contents.size:
-                flat = np.ascontiguousarray(contents.reshape(C, -1, n1),
-                                            dtype=self._np_u)
-                L = flat.shape[1]
-                rows = (np.arange(C)[:, None] * S + 1
-                        + np.arange(L)[None, :]).reshape(-1)
-                slab[self._upload(rows, I64)] = self._upload(
-                    flat.reshape(C * L, n1).view(self._np_s), self._dtype)
+            with trace.Span("executor.fill"):
+                slab = torch.zeros((C * S, n1), dtype=self._dtype,
+                                   device=self.device)
+                if contents.size:
+                    flat = np.ascontiguousarray(contents.reshape(C, -1, n1),
+                                                dtype=self._np_u)
+                    L = flat.shape[1]
+                    ridx = (np.arange(C)[:, None] * S + 1
+                            + np.arange(L)[None, :]).reshape(-1)
+                    slab[self._upload(ridx, I64)] = self._upload(
+                        flat.reshape(C * L, n1).view(self._np_s),
+                        self._dtype)
         luts = None if mv else self._device_plan(circuit)[0]
+        timer = _Steps(self, trace.recording())
         for si in range(start, len(steps)):
-            if mv:
-                rot_chunks, fin = steps[si]
-                accs = [self._mv_rotate(self._vlut, self._affine_combine(
-                    slab[s], coefs, consts)) for s, coefs, consts in rot_chunks]
-                weights, leader, out_idx, positions = fin
-                slab[out_idx] = self._mv_finish(torch.cat(accs), weights,
-                                                leader, positions)
-            else:
-                self._run_level(slab, luts, *steps[si])
+            with timer.step(*rows[si]):
+                if mv:
+                    rot_chunks, fin = steps[si]
+                    accs = [self._mv_rotate(self._vlut, self._affine_combine(
+                        slab[s], coefs, consts))
+                        for s, coefs, consts in rot_chunks]
+                    weights, leader, out_idx, positions = fin
+                    slab[out_idx] = self._mv_finish(torch.cat(accs), weights,
+                                                    leader, positions)
+                else:
+                    self._run_level(slab, luts, *steps[si])
             if (saving and (si + 1) % checkpoint_every == 0
                     and si + 1 < len(steps)):
                 _ckpt.save_many_slab(checkpoint, slab.cpu().numpy(), si + 1,
                                      C, len(steps), fingerprint=fp)
-        roots = circuit.all_roots
-        slots = [r.val.slot for r in roots if r.val.sign != 0]
-        if slots:
-            ridx = (np.arange(C)[:, None] * S
-                    + np.asarray(slots)[None, :]).reshape(-1)
-            got = slab[self._upload(ridx, I64)].cpu().numpy().reshape(
-                C, len(slots), n1)
-        out = np.zeros((C, len(roots), params.num_blocks, n1), self._np_u)
-        for ci in range(C):
-            ri = 0
-            for pi, r in enumerate(roots):
-                ct_u = None
-                if r.val.sign != 0:
-                    ct_u = got[ci, ri].view(self._np_u)
-                    ri += 1
-                out[ci, pi] = _assemble_root(params, r.val, ct_u)
+        with trace.Span("executor.finalize"):
+            roots = circuit.all_roots
+            slots = [r.val.slot for r in roots if r.val.sign != 0]
+            if slots:
+                ridx = (np.arange(C)[:, None] * S
+                        + np.asarray(slots)[None, :]).reshape(-1)
+                got = slab[self._upload(ridx, I64)].cpu().numpy().reshape(
+                    C, len(slots), n1)
+            out = np.zeros((C, len(roots), params.num_blocks, n1),
+                           self._np_u)
+            for ci in range(C):
+                ri = 0
+                for pi, r in enumerate(roots):
+                    ct_u = None
+                    if r.val.sign != 0:
+                        ct_u = got[ci, ri].view(self._np_u)
+                        ri += 1
+                    out[ci, pi] = _assemble_root(params, r.val, ct_u)
+        timer.close()
         # the root download above waited for the device, so the time is
         # the run's own (the JAX package's run_many feeds no watchdog)
         self.watchdog.observe(("many", C, circuit.pbs_count, S, mv,
-                               wide_batch), time.perf_counter() - t_run0)
+                               wide_batch), (time.time_ns() - t_run0) / 1e9)
         return out[:, 0] if circuit.roots is None else out
 
     def run(self, circuit: CompiledCircuit,
@@ -909,10 +1033,12 @@ class Executor:
         bits) -> radix result [num_blocks, n+1] of the same type
         ([R, num_blocks, n+1] for R roots).
 
-        With profile=True each level is synchronized and timed; per-level
-        stats land in ``self.last_run_stats`` (with the rotation batch of a
-        multi-value level), and the failure-probability contract at this
-        key's operating point in ``self.last_run_pfail``.
+        With profile=True each level's device seconds are timed (``_Steps``:
+        CUDA events read after the root download, nothing synchronised per
+        level); per-level stats land in ``self.last_run_stats`` (with the
+        rotation batch of a multi-value level), and the
+        failure-probability contract at this key's operating point in
+        ``self.last_run_pfail``.
 
         checkpoint/resume: with ``checkpoint`` + ``checkpoint_every=k`` the
         slab is saved every k levels while levels remain; ``resume=path``
@@ -933,21 +1059,33 @@ class Executor:
         ("levels", pbs_count, num_slots, multivalue), or ("fused", ...) for
         a fused run."""
         self._check_plan(circuit)
-        t_run0 = time.perf_counter()
+        with trace.Span("executor.run") as run_span:
+            out = self._run(circuit, content_blocks, profile, checkpoint,
+                            checkpoint_every, resume, fuse, run_span.start_ns)
+        return out
+
+    def _run(self, circuit, content_blocks, profile, checkpoint,
+             checkpoint_every, resume, fuse, t_run0: int) -> np.ndarray:
         saving = checkpoint is not None and checkpoint_every > 0
         if fuse is None:
             fuse = default_fuse(circuit, self.device, self._dev_key.backend,
                                 1 if self.mesh is None else self.mesh.size())
+        rows = _level_rows(circuit)
         if fuse and resume is None and not profile and not saving:
+            timer = _Steps(self, trace.recording())
             with self._fused_lock:
                 slab = self.fused_levels(circuit).run(
-                    lambda s: self._fill(s, content_blocks))
+                    lambda s: self._fill(s, content_blocks),
+                    timer.step("+".join(str(w) for w, _ in rows),
+                               sum(w for w, _ in rows),
+                               sum(n for _, n in rows)))
                 out = self._finalize(circuit, slab)
+            timer.close()
             self.last_run_stats = []
             # the root download waited for the whole loop
             self.watchdog.observe(("fused", circuit.pbs_count,
                                    circuit.num_slots, circuit.multivalue),
-                                  time.perf_counter() - t_run0)
+                                  (time.time_ns() - t_run0) / 1e9)
             return out
         fp = (circuit_fingerprint(circuit)
               if saving or resume is not None else None)
@@ -957,41 +1095,43 @@ class Executor:
             words, start = _ckpt.load_slab(resume)
             slab = self._restore(words, circuit.num_slots)
         else:
-            slab = torch.zeros((circuit.num_slots,
-                                self.params.lwe_dimension + 1),
-                               dtype=self._dtype, device=self.device)
-            self._fill(slab, content_blocks)
+            with trace.Span("executor.fill"):
+                slab = torch.zeros((circuit.num_slots,
+                                    self.params.lwe_dimension + 1),
+                                   dtype=self._dtype, device=self.device)
+                self._fill(slab, content_blocks)
         luts, levels = self._device_plan(circuit)
-        stats = []
+        timer = _Steps(self, profile or trace.recording())
         for li in range(start, len(levels)):
-            lv, dev = circuit.levels[li], levels[li]
-            t0 = time.perf_counter()
-            if circuit.multivalue:
-                self._run_level_mv(slab, *dev)
-            else:
-                self._run_level(slab, luts, *dev)
-            if profile:
-                if self.device.type == "cuda":
-                    torch.cuda.synchronize(self.device)
-                stat = {"width": int(lv.lut_idx.shape[0]),
-                        "active": int((lv.lut_idx >= 0).sum()),
-                        "seconds": time.perf_counter() - t0}
+            w, n = rows[li]
+            with timer.step(str(w), w, n):
                 if circuit.multivalue:
-                    stat["rotations"] = int(lv.rot_slots.shape[0])
-                stats.append(stat)
+                    self._run_level_mv(slab, *levels[li])
+                else:
+                    self._run_level(slab, luts, *levels[li])
             if (saving and (li + 1) % checkpoint_every == 0
                     and li + 1 < len(levels)):
                 _ckpt.save_slab(checkpoint, slab.cpu().numpy(), li + 1,
                                 fingerprint=fp)
-        self.last_run_stats = stats
+        out = self._finalize(circuit, slab)
+        seconds = timer.close()
+        stats = []
         if profile:
+            for li, secs in zip(range(start, len(levels)), seconds):
+                lv = circuit.levels[li]
+                stat = {"width": int(lv.lut_idx.shape[0]),
+                        "active": int((lv.lut_idx >= 0).sum()),
+                        "seconds": secs}
+                if circuit.multivalue:
+                    stat["rotations"] = int(lv.rot_slots.shape[0])
+                stats.append(stat)
             self.last_run_pfail = circuit_pfail(
                 self.params, circuit, bsk_drop=_dev_key_drop(self._dev_key))
-        out = self._finalize(circuit, slab)
+        self.last_run_stats = stats
         # _finalize's download waited for the device: the time is real
         self.watchdog.observe(("levels", circuit.pbs_count, circuit.num_slots,
                                circuit.multivalue),
-                              time.perf_counter() - t_run0)
+                              (time.time_ns() - t_run0) / 1e9)
         return out
 
     def _fill(self, slab: torch.Tensor, content_blocks: np.ndarray) -> None:
@@ -1007,18 +1147,19 @@ class Executor:
         """Single root -> [num_blocks, n+1]; multi-root -> [R, num_blocks, n+1].
 
         Only the root rows are downloaded (one gather), never the slab."""
-        params = self.params
-        roots = circuit.all_roots
-        slots = [r.val.slot for r in roots if r.val.sign != 0]
-        rows = (slab[torch.tensor(slots, device=self.device)].cpu().numpy()
-                if slots else None)
-        outs, ri = [], 0
-        for r in roots:
-            val: BitVal = r.val
-            if val.sign == 0:
-                outs.append(_assemble_root(params, val, None))
-            else:
-                ct_u = rows[ri].view(self._np_u)
-                ri += 1
-                outs.append(_assemble_root(params, val, ct_u))
-        return outs[0] if circuit.roots is None else np.stack(outs)
+        with trace.Span("executor.finalize"):
+            params = self.params
+            roots = circuit.all_roots
+            slots = [r.val.slot for r in roots if r.val.sign != 0]
+            rows = (slab[torch.tensor(slots, device=self.device)].cpu()
+                    .numpy() if slots else None)
+            outs, ri = [], 0
+            for r in roots:
+                val: BitVal = r.val
+                if val.sign == 0:
+                    outs.append(_assemble_root(params, val, None))
+                else:
+                    ct_u = rows[ri].view(self._np_u)
+                    ri += 1
+                    outs.append(_assemble_root(params, val, ct_u))
+            return outs[0] if circuit.roots is None else np.stack(outs)

@@ -17,7 +17,8 @@ buffer + shape/dtype), the same as the JAX package's:
                           length), the launch watchdog's per-shape EMA
                           seconds, the per-level timings of the last
                           profiled match ("profile": true on /match), and
-                          (the port's own) each CUDA kernel's launches
+                          (the port's own) each CUDA kernel's launches and
+                          the counters of the spans below
   POST /compile           {"pattern", "content_len"} -> circuit stats
                           (compiles and caches the circuit for that shape)
   POST /match             {"pattern", "ct": {"b64", "shape", "dtype"},
@@ -34,6 +35,27 @@ Every POST endpoint also accepts "patterns": [...] instead of "pattern" —
 the set compiles to ONE shared multi-root circuit (cross-pattern
 subexpressions bootstrap once) and the result gains a leading P axis.
 
+Each POST is one request of ``MatchService.recorder`` (``utils/trace.py``)
+and opens these spans, outermost first: ``serve.request`` (the handler,
+entry to reply written) over ``serve.read`` (the body off the socket),
+``serve.decode`` (JSON and base64), ``serve.service`` (the
+``MatchService`` call: ``service.lookup``, the program and its circuit,
+compiled on a miss; ``service.wait`` for the device lock; the executor's
+``executor.*`` spans), ``serve.encode`` (base64 and JSON) and
+``serve.write`` (headers and body to the socket).  Their seconds are
+counters of /stats whether or not the recorder records:
+
+  requests[endpoint]  count, seconds (the whole request, codec included,
+                      as the JAX daemon counts it), read_s, decode_s,
+                      service_s, encode_s, write_s, bytes_in, bytes_out
+  lookup_s, plan_misses   the service's lookups and those that compiled
+  wait_s              seconds requests waited for the device lock
+  launches_by_width   the executor's steps by the widths of their rotation
+                      launches: steps, rows_launched, rows_needed, device_s
+                      (``Executor.launches_by_width``)
+
+All but write_s and seconds are counted before the reply is written.
+
 Run:  python -m fhe_regex_tpu_torch.serve --key server_key.npz --port 8471
 (``--device cpu`` for the plain PyTorch path; the default is the CUDA
 device, and without one the daemon refuses to start.)
@@ -43,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import json
 import logging
 import threading
@@ -51,6 +74,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+
+from fhe_regex_tpu_torch.utils import trace
 
 logger = logging.getLogger("fhe_regex_tpu_torch.serve")
 
@@ -94,18 +119,50 @@ class MatchService:
         # dicts — serialize it separately from the device lock so two
         # concurrent requests for a new pattern can't both compile it
         self._compile_lock = threading.Lock()
-        # observability (/stats): per-endpoint request counters and the
-        # per-level timing of the last profiled /match (profile: true)
+        # observability (/stats): per-endpoint request counters, the
+        # service's own counters, the per-level timing of the last profiled
+        # /match (profile: true) and the spans of the requests served
         self._stats_lock = threading.Lock()
         self._requests: dict = {}
+        self._counters = {"lookup_s": 0.0, "plan_misses": 0, "wait_s": 0.0}
         self._last_profile: Optional[dict] = None
+        self.recorder = trace.Recorder()
 
-    def _count_request(self, endpoint: str, seconds: float) -> None:
+    def _count_request(self, endpoint: str, counts: dict) -> None:
+        """Add ``counts`` (count, seconds, the phases' seconds and bytes)
+        to the endpoint's row."""
         with self._stats_lock:
-            row = self._requests.setdefault(endpoint,
-                                            {"count": 0, "seconds": 0.0})
-            row["count"] += 1
-            row["seconds"] += seconds
+            row = self._requests.setdefault(endpoint, dict.fromkeys(
+                ("count", "seconds", "read_s", "decode_s", "service_s",
+                 "encode_s", "write_s", "bytes_in", "bytes_out"), 0))
+            for k, v in counts.items():
+                row[k] += v
+
+    def _circuit(self, pattern, fold, branch_budget, multivalue, positions,
+                 content_len: int):
+        """The compiled circuit of a request (``service.lookup``)."""
+        with trace.Span("service.lookup") as sp:
+            prog = self._program(pattern, fold, branch_budget, multivalue,
+                                 positions)
+            with self._compile_lock:  # per-length circuit cache is shared
+                miss = content_len not in prog._circuits
+                circuit = prog.circuit(content_len)
+        with self._stats_lock:
+            self._counters["lookup_s"] += sp.seconds
+            self._counters["plan_misses"] += miss
+        return circuit
+
+    @contextlib.contextmanager
+    def _device(self):
+        """The device lock, its wait a ``service.wait`` span."""
+        with trace.Span("service.wait") as sp:
+            self._lock.acquire()
+        try:
+            with self._stats_lock:
+                self._counters["wait_s"] += sp.seconds
+            yield
+        finally:
+            self._lock.release()
 
     def stats(self) -> dict:
         """Daemon observability: request counters, every compiled program's
@@ -131,6 +188,8 @@ class MatchService:
         with self._stats_lock:
             return {
                 "requests": {k: dict(v) for k, v in self._requests.items()},
+                **self._counters,
+                "launches_by_width": self.executor.launches_by_width(),
                 "programs": programs,
                 # per-launch-shape EMA seconds of Executor.run ("levels",
                 # or "fused" for a level loop run as one CUDA graph) and
@@ -216,11 +275,9 @@ class MatchService:
     def match(self, pattern, ct: np.ndarray, fold: str = "tree",
               branch_budget=None, multivalue=None,
               positions: bool = False, profile: bool = False) -> np.ndarray:
-        prog = self._program(pattern, fold, branch_budget, multivalue,
-                             positions)
-        with self._compile_lock:      # per-length circuit cache is shared
-            circuit = prog.circuit(len(ct))
-        with self._lock:
+        circuit = self._circuit(pattern, fold, branch_budget, multivalue,
+                                positions, len(ct))
+        with self._device():
             out = self.executor.run(circuit, np.ascontiguousarray(ct),
                                     profile=profile)
         if profile:
@@ -237,11 +294,9 @@ class MatchService:
     def match_many(self, pattern, cts: np.ndarray, fold: str = "tree",
                    branch_budget=None, multivalue=None,
                    positions: bool = False) -> np.ndarray:
-        prog = self._program(pattern, fold, branch_budget, multivalue,
-                             positions)
-        with self._compile_lock:      # per-length circuit cache is shared
-            circuit = prog.circuit(cts.shape[1])
-        with self._lock:
+        circuit = self._circuit(pattern, fold, branch_budget, multivalue,
+                                positions, cts.shape[1])
+        with self._device():
             return self.executor.run_many(circuit, np.ascontiguousarray(cts))
 
     def count(self, pattern: str, ct: np.ndarray, fold: str = "tree",
@@ -251,7 +306,7 @@ class MatchService:
 
         if isinstance(pattern, (list, tuple)):
             raise ValueError("/count takes a single \"pattern\"")
-        with self._lock:
+        with self._device():
             return count_matches(self.server_key, ct, pattern, fold=fold,
                                  branch_budget=branch_budget,
                                  backend=self.backend, device=self.device)
@@ -266,7 +321,7 @@ class MatchService:
         if isinstance(pattern, (list, tuple)):
             raise ValueError("/match_long takes a single \"pattern\" "
                              "(pattern sets are not windowed)")
-        with self._lock:
+        with self._device():
             return has_match_long(self.server_key, ct, pattern,
                                   window=window, fold=fold,
                                   branch_budget=branch_budget,
@@ -274,15 +329,21 @@ class MatchService:
                                   multivalue=multivalue, device=self.device)
 
 
+# the POST endpoints whose request carries a ciphertext array "ct"
+CT_ENDPOINTS = ("/match", "/match_many", "/match_long", "/count")
+
+
 def make_handler(service: MatchService):
     class Handler(BaseHTTPRequestHandler):
-        def _reply(self, code: int, obj: dict):
-            body = json.dumps(obj).encode()
+        def _send(self, code: int, body: bytes):
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
+
+        def _reply(self, code: int, obj: dict):
+            self._send(code, json.dumps(obj).encode())
 
         def log_message(self, fmt, *args):
             logger.debug("%s " + fmt, self.client_address[0], *args)
@@ -303,10 +364,19 @@ def make_handler(service: MatchService):
                 self._reply(404, {"error": "unknown path"})
 
         def do_POST(self):
-            t0 = time.time()
-            try:
-                n = int(self.headers.get("Content-Length", "0"))
-                req = json.loads(self.rfile.read(n) or b"{}")
+            with service.recorder.request() as rq:
+                try:
+                    self._post(rq)
+                except Exception as e:   # surface as a clean client error
+                    logger.warning("%s failed", self.path, exc_info=True)
+                    self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+
+        def _post(self, rq: trace.Span):
+            n = int(self.headers.get("Content-Length", "0"))
+            with trace.Span("serve.read") as read:
+                raw = self.rfile.read(n)
+            with trace.Span("serve.decode") as decode:
+                req = json.loads(raw or b"{}")
                 fold = req.get("fold", "tree")
                 budget = req.get("branch_budget")
                 # multivalue: true/false forces the plan; absent/null = auto
@@ -320,38 +390,43 @@ def make_handler(service: MatchService):
                 # "positions": true -> one bit per start offset instead
                 pat = (req["patterns"] if "patterns" in req
                        else req["pattern"])
+                ct = (decode_array(req["ct"]) if self.path in CT_ENDPOINTS
+                      else None)
+            with trace.Span("serve.service") as served:
                 if self.path == "/compile":
                     out = service.compile(pat, int(req["content_len"]),
                                           fold, budget, mv, pos)
-                    self._reply(200, out)
                 elif self.path == "/match":
-                    ct = decode_array(req["ct"])
-                    res = service.match(pat, ct, fold, budget, mv, pos,
+                    out = service.match(pat, ct, fold, budget, mv, pos,
                                         profile=bool(req.get("profile",
                                                              False)))
-                    self._reply(200, {"ct": encode_array(res)})
                 elif self.path == "/match_many":
-                    cts = decode_array(req["ct"])
-                    res = service.match_many(pat, cts, fold, budget, mv, pos)
-                    self._reply(200, {"ct": encode_array(res)})
+                    out = service.match_many(pat, ct, fold, budget, mv, pos)
                 elif self.path == "/match_long":
                     if pos:
                         raise ValueError(
                             "positions is not supported on /match_long")
-                    ct = decode_array(req["ct"])
-                    res = service.match_long(pat, ct, req.get("window"),
+                    out = service.match_long(pat, ct, req.get("window"),
                                              fold, budget, mv)
-                    self._reply(200, {"ct": encode_array(res)})
                 elif self.path == "/count":
-                    ct = decode_array(req["ct"])
-                    res = service.count(pat, ct, fold, budget)
-                    self._reply(200, {"ct": encode_array(res)})
+                    out = service.count(pat, ct, fold, budget)
                 else:
-                    self._reply(404, {"error": "unknown path"})
-                service._count_request(self.path, time.time() - t0)
-            except Exception as e:   # surface as a clean client error
-                logger.warning("%s failed", self.path, exc_info=True)
-                self._reply(400, {"error": f"{type(e).__name__}: {e}"})
+                    out = None
+            code = 404 if out is None else 200
+            with trace.Span("serve.encode") as encode:
+                body = json.dumps(
+                    {"error": "unknown path"} if out is None
+                    else out if self.path == "/compile"
+                    else {"ct": encode_array(out)}).encode()
+            service._count_request(self.path, {
+                "count": 1, "read_s": read.seconds, "bytes_in": len(raw),
+                "decode_s": decode.seconds, "service_s": served.seconds,
+                "encode_s": encode.seconds, "bytes_out": len(body)})
+            with trace.Span("serve.write") as write:
+                self._send(code, body)
+            service._count_request(self.path, {
+                "write_s": write.seconds,
+                "seconds": (time.time_ns() - rq.start_ns) / 1e9})
 
     return Handler
 

@@ -1,59 +1,15 @@
-"""Cost model + run counters.
+"""The multi-card communication model.
 
-The reference's only observability is the ct_ops / cache_hits pair logged at
-the end of a run (execution.rs:56-62, engine.rs:36-40).  We keep those
-(emitted by has_match) and add the quantities that matter on the card:
-bootstrap counts, level counts, and an analytic operation model of the
-blind-rotation kernel for roofline comparisons.
-
-Every default below is an NVIDIA H100 SXM figure: a data-sheet peak, or a
-rate measured on the card by a script of this repository, each named
-where it is set.
+Every default below is an NVIDIA H100 SXM figure: a data-sheet figure, or
+a rate measured on the card by a script of this repository, each named
+where it is set.  (The least times of the rotations, the benchmark's
+roofline, are ``portbench/roofline.py``'s.)
 """
 
 from __future__ import annotations
 
-import dataclasses
-
 from fhe_regex_tpu_torch.params import Params
 
-
-@dataclasses.dataclass
-class PbsCost:
-    macs_per_pbs: float        # int8 limb multiply-accumulates per bootstrap
-    hbm_bytes_per_pbs: float   # bootstrap-key traffic per bootstrap
-
-
-def pbs_cost_model(params: Params, limbs: int = 4) -> PbsCost:
-    """Tensor-core/HBM cost of one programmable bootstrap in the matmul
-    formulation.
-
-    Per CMUX step: (k+1)*level digit polys each convolved into (k+1) output
-    polys; each negacyclic polymul is an N x N matmul done `limbs` times for
-    exactness.
-    """
-    n = params.lwe_dimension
-    k1 = params.glwe_dimension + 1
-    rows = k1 * params.pbs_level
-    N = params.polynomial_size
-    macs = float(n) * rows * k1 * limbs * N * N
-    # bootstrap key bytes streamed once per *batch*, amortized over batch=1
-    hbm = float(n) * rows * k1 * N * 4
-    return PbsCost(macs_per_pbs=macs, hbm_bytes_per_pbs=hbm)
-
-
-def speed_of_light_pbs_per_sec(params: Params, tops: float = 1979.0,
-                               util: float = 1.0, batch: int = 256) -> float:
-    """Upper bound on bootstraps/s per card at ``tops`` tera-operations/s:
-    default the H100 SXM's dense int8 tensor-core rate (data sheet), the
-    type of the kernels' limb products."""
-    cost = pbs_cost_model(params)
-    flops = 2.0 * cost.macs_per_pbs
-    return tops * 1e12 * util / flops
-
-
-# ---------------- multi-card communication model ----------------
-#
 # No machine with more than one card has run the port yet, so the scaling
 # claim is FALSIFIABLE instead of measured: this model predicts the
 # collective traffic and scaling efficiency of each parallelism strategy
