@@ -138,7 +138,7 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    watchdog's "levels" key) and takes the graph on ``cuda`` ("fused"), a
    warm replay counting #1 and #2.  A JSON line ``{"fuse": ...}``
    precedes the kernels line;
-17. last, the mesh on the card (``fhe_regex_tpu_torch.parallel``): a NCCL
+17. the mesh on the card (``fhe_regex_tpu_torch.parallel``): a NCCL
    process group of world 1 in this process (``multihost.initialize`` on
    a free local port; one card holds one rank) and ``make_mesh(1)``:
    (a) the six 32-bit requests through ``has_match(mesh=)``, each
@@ -165,6 +165,13 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    encrypted 0, each decrypting to itself; (f) ``dryrun_multichip(1)`` on
    phase 2's keys.  A JSON line ``{"mesh": ...}`` precedes the kernels
    line.
+18. the spectral rotation (``spectral::ext_product`` of
+   ``csrc/blind_rotate.cu``, which ``cuda-fused`` and ``cuda-bg`` run on
+   the key spectrum ``prepare_server_key`` makes, its seconds printed): bit-equal to the plain rotation, the
+   ``cuda`` backend, the limb GEMM and the wrapper at B = 8, 16, 64, 256
+   and 1024; both paths timed at B = 8 ... 1024 beside the limb and FFT
+   bounds of ``portbench/roofline.py`` (the crossover sweep); a JSON line
+   ``{"spectral": ...}``.
 
 Before each main path every launch count is set to 0; just after, the
 path's kernel must show launches (on the ``fft`` path: none).  Any failure
@@ -1218,8 +1225,9 @@ def fft_backend(port, pbs_cuda, params, ck, sk, dk, results, classic):
     if spec.device.type != torch.device(DEVICE).type:
         raise AssertionError(f"spectral key on {spec.device}")
     prep = {"s": prep_s, "bytes": spec.numel() * 16}
-    print(f"fft key {params.name}: {prep_s:.3f} s (host float64 FFT + "
-          f"upload), {spec.numel() * 16 / 1e6:.1f} MB on the card", flush=True)
+    print(f"fft key {params.name}: {prep_s:.3f} s (upload, limbs and "
+          f"torch.fft on the card), {spec.numel() * 16 / 1e6:.1f} MB",
+          flush=True)
     rotations = []
     _reset_counts(pbs_cuda)
     for B in (8, 256):
@@ -1297,6 +1305,83 @@ def fft_backend(port, pbs_cuda, params, ck, sk, dk, results, classic):
             "serving_cuda_fused_classic_contents_per_s": C / classic_s}
 
 
+SPECTRAL_EQUAL = (8, 16, 64, 256, 1024)            # checked bit for bit
+SPECTRAL_SWEEP = (8, 16, 32, 64, 128, 256, 512, 1024)   # timed on both paths
+
+
+def spectral_phase(pbs_cuda, params, ck, sk, blind_rotate):
+    """Phase 18: the spectral rotation of ``cuda-fused`` / ``cuda-bg``
+    (``spectral::ext_product``, float64 FFTs on the key spectrum that
+    ``prepare_server_key`` makes on the card, its seconds printed).  At
+    each B of ``SPECTRAL_EQUAL``, bit-equal to the plain rotation, to the
+    per-step ``cuda`` backend and to the limb GEMM, and the wrapper's
+    rotation with the key's spectrum (its steps counted as spectral); at
+    each B of ``SPECTRAL_SWEEP``, device ms
+    a rotation of both paths (3 warm calls each between CUDA events),
+    bit-equal, beside the limb and float64 FFT bounds of
+    ``portbench/roofline.py``: the crossover sweep.  Returns the numbers of
+    the ``{"spectral": ...}`` line."""
+    from fhe_regex_tpu_torch.ops.pbs import prepare_server_key
+    from portbench.roofline import fft_rotation_bound as fft_bound
+    from portbench.roofline import rotation_bound as limb_bound
+
+    dk, prep_s = _timed(lambda: prepare_server_key(params, sk, DEVICE,
+                                                   "cuda-fused"))
+    if dk.spec is None:
+        raise AssertionError("cuda-fused key without its spectrum")
+    print(f"spectral key {params.name}: prepare_server_key {prep_s:.3f} s "
+          f"(upload, limbs and torch.fft on the card), "
+          f"{dk.spec.numel() * 16 / 1e6:.1f} MB", flush=True)
+    out = {"key_prep_s": prep_s, "key_bytes": dk.spec.numel() * 16,
+           "max_abs_err": 0, "widths": []}
+    for B in sorted(set(SPECTRAL_EQUAL) | set(SPECTRAL_SWEEP)):
+        x = _rotation_inputs(params, ck, B, seed=1800 + B)
+        args = (params, dk.bsk, x["luts"], x["lut_idx"], x["ms"])
+
+        def spectral():
+            return pbs_cuda._rotate_spectral(params, dk.spec, *args[2:])
+
+        def limb():
+            return pbs_cuda.blind_rotate_fused(*args)
+
+        got, want_limb = spectral(), limb()
+        row = {"B": B}
+        if B in SPECTRAL_EQUAL:
+            steps0 = pbs_cuda.rotation_steps()
+            main = pbs_cuda.blind_rotate_fused(*args, spec=dk.spec)
+            steps1 = pbs_cuda.rotation_steps()
+            if (steps1["spectral"] - steps0["spectral"]
+                    != params.lwe_dimension * B
+                    or steps1["limb"] != steps0["limb"]):
+                raise AssertionError(f"B={B}: rotation_steps {steps0} -> "
+                                     f"{steps1}")
+            want = blind_rotate(*args)
+            out["max_abs_err"] = max(out["max_abs_err"],
+                                     _max_abs_err(got, want))
+            per_step = pbs_cuda.blind_rotate_steps(*args)
+            for name, other in (("plain", want), ("cuda", per_step),
+                                ("limb", want_limb), ("wrapper", main)):
+                if not torch.equal(got, other):
+                    raise AssertionError(
+                        f"spectral rotation B={B} != {name} (max |diff| "
+                        f"{_max_abs_err(got, other)})")
+            row["equal"] = ["plain", "cuda", "limb", "wrapper"]
+        elif not torch.equal(got, want_limb):
+            raise AssertionError(f"spectral rotation B={B} != limb")
+        row["spectral_ms"] = [_event_ms(spectral)[1] for _ in range(3)]
+        row["limb_ms"] = [_event_ms(limb)[1] for _ in range(3)]
+        L = x["luts"].shape[0]
+        row["limb_bound_ms"], _ = limb_bound(params, B, L)
+        row["fft_bound_ms"], _ = fft_bound(params, B, L)
+        out["widths"].append(row)
+        print(f"spectral rotation {params.name} B={B}: equal to "
+              f"{row.get('equal', ['limb'])}; device ms {_fmt(row['spectral_ms'])}"
+              f" (limb GEMM {_fmt(row['limb_ms'])}); bounds: limb "
+              f"{row['limb_bound_ms']:.3f}, fft {row['fft_bound_ms']:.3f} "
+              f"ms", flush=True)
+    return out
+
+
 def _run_timed(fn):
     """(result, wall seconds, device-stream seconds) of one call of fn:
     a host clock and two CUDA events around it, synchronised."""
@@ -1356,15 +1441,18 @@ def _busy(fn):
     return wall, busy / 1e9, names
 
 
-def _our_kernels(launches: dict, n: int) -> dict:
+def _our_kernels(launches: dict, n: int, spectral: bool = False) -> dict:
     """{device function: kernels run} for ``launches`` ({wrapper name:
     launches}) of ``ops/pbs_cuda.py``'s 32-bit wrappers: a whole rotation
-    is one ``acc_init`` and n (``stage1``, ``ext_product``) pairs; the
+    is one ``acc_init`` and n (``stage1``, ``ext_product``) pairs, or, on
+    the key's spectrum (``spectral``), one ``spectral::ext_product``; the
     row-block entry runs ``ext_product`` too."""
     rot = launches.get("blind_rotate_fused", 0)
-    return {"acc_init": rot,
-            "stage1": n * rot + launches.get("stage1_digits", 0),
-            "ext_product": n * rot + launches.get("external_product_step", 0)
+    steps = 0 if spectral else n
+    return {"acc_init": 0 if spectral else rot,
+            "stage1": steps * rot + launches.get("stage1_digits", 0),
+            "ext_product": (rot if spectral else n * rot)
+            + launches.get("external_product_step", 0)
             + launches.get("external_product_rows", 0)}
 
 
@@ -1565,7 +1653,8 @@ def fused_phase(port, pbs_cuda, full, ck, sk, dk, results, full64, dk64_bg,
                                        "idle_share": 1 - busy / wall}
             traced[kind] = {k: names.get(k, 0) for k in
                             ("acc_init", "stage1", "ext_product")}
-        recorded = _our_kernels(row["launches_per_replay"], n)
+        recorded = _our_kernels(row["launches_per_replay"], n,
+                                spectral=key.spec is not None)
         if not traced["levels"] == traced["fused"] == recorded:
             raise AssertionError(f"{name} {backend}: the trace shows kernels "
                                  f"{traced}, the capture recorded launches "
@@ -2101,6 +2190,7 @@ def main() -> int:
           flush=True)
 
     # ---- phase 2: the 32-bit kernel against its plain version ----
+    rot0 = pbs_cuda.rotation_launches()
     errs = []
     small = get_params(SMALL)
     ck_s, sk_s = port.gen_keys(small, seed=7)
@@ -2138,11 +2228,21 @@ def main() -> int:
     print("blind_rotate_fused B=8 three times back to back: each equal to "
           "plain", flush=True)
 
+    # the limb GEMM's launches (phase 2 gives the rotation no spectrum)
+    rot1 = pbs_cuda.rotation_launches()
+    limb_launches = rot1["fhe_blind_rotate"] - rot0["fhe_blind_rotate"]
+
     # ---- phase 3: the 32-bit main path, six requests ----
     warm3 = {}
     main_launches, results = main_path(port, pbs_cuda, full, ck, sk,
                                        pbs_cuda.blind_rotate_fused, REQUESTS,
                                        times=warm3)
+    rot3 = pbs_cuda.launch_delta(rot1, pbs_cuda.rotation_launches())
+    spectral_launches = rot3.pop("fhe_blind_rotate_spectral", 0)
+    if rot3 or spectral_launches != main_launches:
+        raise AssertionError(f"main path: blind_rotate_fused launches "
+                             f"{main_launches}, spectral {spectral_launches}, "
+                             f"limb {rot3}: not every rotation spectral")
 
     # the result is right by the repo's own means: the same ciphertext as
     # the plain backend on the card, and as the CPU on a small set
@@ -2252,11 +2352,14 @@ def main() -> int:
     steps_vs_fused(full, ck, dk.bsk, pbs_cuda)
 
     # ---- phase 9: the batch-grid kernel #4 against plain ----
+    rot9 = pbs_cuda.rotation_launches()
     bg = batch_grid(full, ck, dk.bsk, pbs_cuda, blind_rotate)
+    bg_launches = (pbs_cuda.rotation_launches()["fhe_blind_rotate_bg"]
+                   - rot9["fhe_blind_rotate_bg"])
 
     # ---- phase 10: the serving path, 32 bits ----
     name, pattern, content, bit = REQUESTS[0]
-    bg_launches, s1_launches, ep_launches, classic, served = serving(
+    _, s1_launches, ep_launches, classic, served = serving(
         port, pbs_cuda, full, ck, sk,
         (name, pattern, content, bit) + results[name])
 
@@ -2287,6 +2390,10 @@ def main() -> int:
         port, pbs_cuda, plain, full, ck, sk, dk, sk64, ck64, results, warm3,
         results64, classic, served, (ck_s, sk_s))
 
+    # ---- phase 18: the spectral rotation, its crossover sweep ----
+    spectral = spectral_phase(pbs_cuda, full, ck, sk, blind_rotate)
+    spec256 = next(r for r in spectral["widths"] if r["B"] == 256)
+
     def entry(name, source, replaces, launches, err, ms, plain_ms, bound,
               library_ms=None):
         return {"name": name, "route": "cuda",
@@ -2314,12 +2421,16 @@ def main() -> int:
               library_ms=rows_ms[B, rows]["lib"]),
         entry("stage1_digits", "blind_rotate.cu", 235, s1_launches, s1_err,
               s1[B]["ms"], s1[B]["plain"], s1[B]["bound"]),
-        entry("blind_rotate_fused", "blind_rotate.cu", 358, main_launches,
+        entry("blind_rotate_fused", "blind_rotate.cu", 358, limb_launches,
               max(errs), times[B][0] * 1e3, times[B][1] * 1e3,
               rotation_bound(full, B, L)),
         entry("blind_rotate_fused_bg", "blind_rotate.cu", 713, bg_launches,
               bg["err"], bg["ms"], bg["plain_ms"],
               rotation_bound(full, bg["B"], bg["L"])),
+        entry("spectral rotation (cuda-fused, cuda-bg)", "blind_rotate.cu",
+              "358,713", spectral_launches, spectral["max_abs_err"],
+              float(np.median(spec256["spectral_ms"])), times[B][1] * 1e3,
+              fft_rotation_bound(full, B, L)),
         entry("blind_rotate_fused64", "blind_rotate64.cu", 1196, main64,
               max(errs64), times64[B][0] * 1e3, times64[B][1] * 1e3,
               rotation_bound(full64, B, L)),
@@ -2334,6 +2445,7 @@ def main() -> int:
     print(f"bounds at B=8 (ms, by): {narrow}", flush=True)
     print(f"chip_smoke {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"fft": fft}))
+    print(json.dumps({"spectral": spectral}))
     print(json.dumps({"mesh": mesh}))
     print(json.dumps({"fuse": fuse}))
     print(json.dumps({"kernels": kernels}))

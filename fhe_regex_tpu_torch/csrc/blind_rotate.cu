@@ -16,7 +16,12 @@
 //    (parallel/tensor.py).  With the digit pass it is the per-step backend
 //    `cuda`, whose step loop runs in Python.
 // The external product inside _fused_blindrot_kernel (:358) and
-// _fused_blindrot_bg_kernel (:713) is the same `ext_product` device code.
+// _fused_blindrot_bg_kernel (:713) is the same `ext_product` device code,
+// unless the rotation is given the key's spectrum: then it is the float64
+// spectral external product of `spectral::ext_product`
+// (fhe_blind_rotate_spectral, at the end of this file), which
+// cuda-fused and cuda-bg run at the production set.  `ext_product` stays
+// the per-step backend's (`cuda`) and the tensor-parallel path's.
 //
 // What bounds it.  Every CMUX step is an external product of the B
 // accumulators' digits with the step's GGSW, a [B, (k+1)l*N] x
@@ -408,6 +413,368 @@ int rotate32(const int32_t* cts_ms, const int32_t* luts,
   return 0;
 }
 
+// ---- the spectral external product: cuda-fused and cuda-bg at N = 2048 ----
+//
+// Replaces, on those two backends, the step above (`stage1`, then the int8
+// limb GEMM `ext_product`) by the float64 FFT formulation of
+// ops/pbs_fft.py, whose key spectrum (limb plan PLAN = (16, 8, 8),
+// complex128, [n, (k+1)l, k+1, 3, N/2]) prepare_server_key makes on the
+// card.  One block runs the whole rotation of T instances: their
+// accumulators and every step's spectra stay in its shared memory, and no
+// block waits on another, so the n steps need no launch between them (the
+// two launches a step of the limb path would move each step's spectra,
+// 96 KB an instance, through L2 and back).  Each step, for each instance:
+//  1. the digit pass of `stage1` (X^{a_i} acc - acc, rounded, l balanced
+//     digits), once a coefficient, into the head of each row's slot as
+//     int8; each of the (k+1)l digit rows folded to M = N/2 complex points
+//     u_j = (d_j + i d_{j+M}) t_j, t_j = e^{i pi j/N}, and transformed: a
+//     Stockham FFT (natural order in and out) of radix 16, 16, 4, 64
+//     threads a transform, 16 points a thread in registers;
+//  2. the contraction: each frequency of the (k+1) x 3 outputs (component,
+//     key limb) is the sum over the rows of digit spectrum x key spectrum,
+//     written over the digit spectra; one thread a frequency for all T
+//     instances, so each key value read serves T of them;
+//  3. the inverse transforms, 1/M and the untwist; each limb rounded to its
+//     integer and added, times 2^weight, into the accumulator mod 2^32
+//     (shared atomics: exact in any order).
+// Exactness: a limb's value is an integer below 64 * 2^15 * N * (k+1)l ~=
+// 2^34.6 (digits |d| <= 64, the 16-bit limb |k| <= 2^15), far inside the
+// 53-bit mantissa; on the worst input (every digit -64, every limb at its
+// extreme) the CPU tests find no limb further than 3.1e-5 from its integer,
+// so rounding gives the integer and the step is the exact external
+// product, bit for bit.  The CPU tests hold a twin of this arithmetic, its
+// passes, swz and at16 included (tests/test_torch_kernels32.py,
+// _spectral_step), to the exact one.
+//
+// What bounds it.  Per instance and step, 12 length-1024 transforms and
+// 36 x 1024 complex multiply-adds, ~0.8 MFLOP of float64: 5.0 ms a
+// rotation at B = 256 at 34 TFLOP/s outside the tensor cores.  Every block
+// reads the step's key spectrum, 590 KB, from L2 (from device memory once
+// a step), at about 62 bytes a clock an SM.  What the design does:
+//  * T = 2 instances a block above one wave of the card (B > 132) halve
+//    the key traffic an instance; T = 1 below, so a narrow batch spreads
+//    over B SMs.  Shared memory is T x (6 x 16 KB of spectra + 16 KB of
+//    accumulator), 229,376 bytes at T = 2 of the 232,448 a block may have:
+//    one block an SM, 12 warps, 168 registers a thread.  The key goes
+//    around L1 (ld.global.cg), so the twist and twiddle tables (32 KB)
+//    keep what is left of it.
+//  * Shared accesses are conflict-free: every point is read and written at
+//    swz(k) = k ^ ((k >> 4) & 7), which puts each 8 lanes of a quarter-warp
+//    on 8 distinct 16-byte slots in every access pattern of the passes.
+//  * A pass's twiddles are powers of one table entry, w^{q s} = (w^s)^q,
+//    taken by multiplication: shared memory and L1 share one path, and
+//    15 loads a point set of pass 2 held it (measured: pass 2 at half the
+//    time without them).
+// Measured (H100 SXM, 700 W): a rotation at B = 8 / 256 / 1024 takes 12.4 /
+// 22.0 / 89 ms against the limb GEMM's 17.2 / 138.6 / 522; by phase, at
+// T = 2, a step's 52k clocks are digits and pass 1 22 %, forward passes 2
+// and 3 18 %, contraction 29 %, inverse 31 %.
+namespace spectral {
+
+constexpr int N = 2048, M = N / 2;     // coefficients; points a transform
+constexpr int K1 = 2, LEVEL = 3;       // components; gadget levels
+constexpr int ROWS = K1 * LEVEL;       // digit rows (forward transforms)
+constexpr int NL = 3;                  // key limbs, PLAN (16, 8, 8)
+constexpr int OUTS = K1 * NL;          // inverse transforms
+constexpr int FT = 64;                 // threads a transform
+constexpr int GROUPS = 6;              // transforms in flight
+constexpr int THREADS = FT * GROUPS;   // 384
+static_assert(ROWS == OUTS && ROWS == GROUPS, "one slot a row and output");
+static_assert(M == FT * 16, "passes 1 and 2: 16 points a thread");
+
+__host__ __device__ constexpr size_t smem_bytes(int T) {
+  return (size_t)T * (ROWS * M * sizeof(double2) + K1 * N * sizeof(uint32_t));
+}
+
+__device__ __forceinline__ int swz(int k) { return k ^ ((k >> 4) & 7); }
+
+__device__ __forceinline__ double2 cadd(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ double2 csub(double2 a, double2 b) {
+  return make_double2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(fma(a.x, b.x, -a.y * b.y), fma(a.x, b.y, a.y * b.x));
+}
+__device__ __forceinline__ double2 cfma(double2 a, double2 b, double2 c) {
+  return make_double2(fma(a.x, b.x, fma(-a.y, b.y, c.x)),
+                      fma(a.x, b.y, fma(a.y, b.x, c.y)));
+}
+// table entry k, conjugated for the inverse transform
+template <bool INV>
+__device__ __forceinline__ double2 tab(const double2* t, int k) {
+  const double2 v = __ldg(t + k);
+  return INV ? make_double2(v.x, -v.y) : v;
+}
+
+// 4-point DFT in place, e^{-2 pi i/4} (forward) or e^{+2 pi i/4}.
+template <bool INV>
+__device__ __forceinline__ void dft4(double2& a, double2& b, double2& c,
+                                     double2& d) {
+  const double2 t0 = cadd(a, c), t1 = csub(a, c), t2 = cadd(b, d);
+  double2 t3 = csub(b, d);
+  t3 = INV ? make_double2(-t3.y, t3.x) : make_double2(t3.y, -t3.x);
+  a = cadd(t0, t2);
+  c = csub(t0, t2);
+  b = cadd(t1, t3);
+  d = csub(t1, t3);
+}
+
+// 16-point DFT as 4 x 4: X[q] ends in x[at16(q)] = x[4 (q % 4) + q / 4].
+template <bool INV>
+__device__ __forceinline__ void dft16(double2 (&x)[16]) {
+  constexpr double C[10] = {1.0, 0.92387953251128674, 0.70710678118654752,
+                            0.38268343236508978, 0.0, -0.38268343236508978,
+                            -0.70710678118654752, -0.92387953251128674,
+                            -1.0, -0.92387953251128674};
+  constexpr double S[10] = {0.0, 0.38268343236508978, 0.70710678118654752,
+                            0.92387953251128674, 1.0, 0.92387953251128674,
+                            0.70710678118654752, 0.38268343236508978,
+                            0.0, -0.38268343236508978};
+#pragma unroll
+  for (int n1 = 0; n1 < 4; ++n1)
+    dft4<INV>(x[n1], x[n1 + 4], x[n1 + 8], x[n1 + 12]);
+#pragma unroll
+  for (int n1 = 1; n1 < 4; ++n1)
+#pragma unroll
+    for (int k2 = 1; k2 < 4; ++k2) {
+      const int p = n1 * k2;                  // e^{-+2 pi i p/16}
+      x[n1 + 4 * k2] = cmul(x[n1 + 4 * k2],
+                            make_double2(C[p], INV ? S[p] : -S[p]));
+    }
+#pragma unroll
+  for (int k2 = 0; k2 < 4; ++k2)
+    dft4<INV>(x[4 * k2], x[4 * k2 + 1], x[4 * k2 + 2], x[4 * k2 + 3]);
+}
+__device__ __forceinline__ int at16(int q) { return 4 * (q & 3) + (q >> 2); }
+
+// Pass 1 (radix 16, Ns = 1) of the round's transforms, in place: x holds
+// this thread's points j + 64 q; barrier (every point of the slots read),
+// then outputs 16 j + q.
+__device__ __forceinline__ void pass1_store(double2* s, double2 (&x)[16],
+                                            int j) {
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < 16; ++q) s[swz(j * 16 + q)] = x[at16(q)];
+}
+
+// Pass 2 (radix 16, Ns = 16) of every transform of the block, in place:
+// read all, barrier, write all, a round of GROUPS transforms at a time.
+template <bool INV, int T>
+__device__ __forceinline__ void pass2(double2* sp, const double2* w, int g,
+                                      int j) {
+#pragma unroll
+  for (int f = g; f < T * ROWS; f += GROUPS) {
+    double2* s = sp + f * M;
+    double2 x[16];
+#pragma unroll
+    for (int q = 0; q < 16; ++q) x[q] = s[swz(j + FT * q)];
+    const double2 w1 = tab<INV>(w, (j & 15) * 4);
+    double2 wq = w1;                          // w^{4 (j mod 16) q}
+#pragma unroll
+    for (int q = 1; q < 16; ++q) {
+      x[q] = cmul(x[q], wq);
+      wq = cmul(wq, w1);
+    }
+    dft16<INV>(x);
+    __syncthreads();
+    const int base = (j >> 4) * 256 + (j & 15);
+#pragma unroll
+    for (int q = 0; q < 16; ++q) s[swz(base + 16 * q)] = x[at16(q)];
+  }
+  __syncthreads();
+}
+
+// Pass 3 (radix 4, Ns = 256) of butterfly jj of slot s: its points jj +
+// 256 q, read and transformed in x (each thread's butterflies are its own).
+template <bool INV>
+__device__ __forceinline__ void pass3(const double2* s, const double2* w,
+                                      int jj, double2 (&x)[4]) {
+  const double2 v1 = tab<INV>(w, jj), v2 = cmul(v1, v1);
+  x[0] = s[swz(jj)];
+  x[1] = cmul(s[swz(jj + 256)], v1);
+  x[2] = cmul(s[swz(jj + 512)], v2);
+  x[3] = cmul(s[swz(jj + 768)], cmul(v2, v1));
+  dft4<INV>(x[0], x[1], x[2], x[3]);
+}
+
+// The whole rotation of instances [T blockIdx.x, + T): acc_out [B, K1, N].
+// key [n, ROWS, K1, NL, M] complex128; tables [2, M]: the twist, then the
+// twiddles w_k = e^{-2 pi i k/M}.
+template <int T>
+__global__ void __launch_bounds__(THREADS, 1)
+ext_product(const int32_t* __restrict__ cts_ms,
+            const int32_t* __restrict__ luts,
+            const int32_t* __restrict__ lut_idx,
+            const double2* __restrict__ key,
+            const double2* __restrict__ tables, int32_t* __restrict__ acc_out,
+            int B, int n, int base_log) {
+  extern __shared__ __align__(16) double2 sp[];   // [T][ROWS][M], swizzled
+  uint32_t* acc = reinterpret_cast<uint32_t*>(sp + T * ROWS * M);  // [T][K1][N]
+  const double2* twist = tables;
+  const double2* w = tables + M;
+  const int tid = threadIdx.x, g = tid / FT, j = tid % FT;
+  const int b0 = blockIdx.x * T;
+  const int shift = 32 - base_log * LEVEL;
+  const uint32_t mask = (1u << base_log) - 1u, half = 1u << (base_log - 1);
+
+  // acc0 = (0, X^{-b~} lut); a tile's instances past B stay zero
+  for (int e = tid; e < T * K1 * N; e += THREADS) {
+    const int t = e / (K1 * N), c = (e / N) % K1, m = e % N, b = b0 + t;
+    uint32_t v = 0u;
+    if (c == K1 - 1 && b < B) {
+      const int r0 = (2 * N - cts_ms[(size_t)b * (n + 1) + n]) & (2 * N - 1);
+      const int s = (m - r0) & (2 * N - 1);
+      const uint32_t* lut =
+          reinterpret_cast<const uint32_t*>(luts) + (size_t)lut_idx[b] * N;
+      v = s < N ? lut[s] : 0u - lut[s - N];
+    }
+    acc[e] = v;
+  }
+  __syncthreads();
+
+  for (int i = 0; i < n; ++i) {
+    // 1. the digits of each row into the head of its slot, as int8
+    for (int e = tid; e < T * K1 * N; e += THREADS) {
+      const int t = e / (K1 * N), c = (e / N) % K1, m = e % N;
+      const int a = cts_ms[(size_t)min(b0 + t, B - 1) * (n + 1) + i];
+      const uint32_t* p = acc + (t * K1 + c) * N;
+      const int s = (m - a) & (2 * N - 1);
+      const uint32_t v = p[s & (N - 1)];
+      uint32_t st =
+          (((s & N) ? 0u - v : v) - p[m] + (1u << (shift - 1))) >> shift;
+#pragma unroll
+      for (int lev = LEVEL - 1; lev >= 0; --lev) {  // least significant first
+        const uint32_t d = st & mask;
+        const uint32_t sd = d >= half ? d - mask - 1u : d;   // balanced
+        st = (st - sd) >> base_log;
+        reinterpret_cast<int8_t*>(sp + (t * ROWS + c * LEVEL + lev) * M)[m] =
+            (int8_t)sd;
+      }
+    }
+    __syncthreads();
+    // fold, twist, passes 1, 2 and 3 of the forward transforms
+#pragma unroll
+    for (int f = g; f < T * ROWS; f += GROUPS) {
+      const int8_t* dg = reinterpret_cast<const int8_t*>(sp + f * M);
+      double2 x[16];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) {
+        const int m = j + FT * q;
+        x[q] = cmul(make_double2(dg[m], dg[m + M]), __ldg(twist + m));
+      }
+      dft16<false>(x);
+      pass1_store(sp + f * M, x, j);
+    }
+    __syncthreads();
+    pass2<false, T>(sp, w, g, j);
+#pragma unroll
+    for (int f = g; f < T * ROWS; f += GROUPS) {
+      double2* s = sp + f * M;
+#pragma unroll 1
+      for (int u = 0; u < 4; ++u) {
+        const int jj = j + FT * u;
+        double2 x[4];
+        pass3<false>(s, w, jj, x);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s[swz(jj + 256 * q)] = x[q];
+      }
+    }
+    __syncthreads();
+
+    // 2. the contraction, frequency by frequency, into slot o = c NL + limb
+    const double2* ki = key + (size_t)i * ROWS * OUTS * M;
+    for (int jf = tid; jf < M; jf += THREADS) {
+      const int k = swz(jf);
+      double2 d[T][ROWS];
+#pragma unroll
+      for (int t = 0; t < T; ++t)
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) d[t][r] = sp[(t * ROWS + r) * M + k];
+#pragma unroll
+      for (int o = 0; o < OUTS; ++o) {
+        double2 y[T];
+#pragma unroll
+        for (int t = 0; t < T; ++t) y[t] = make_double2(0.0, 0.0);
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const double2 kv = __ldcg(ki + (r * OUTS + o) * M + jf);
+#pragma unroll
+          for (int t = 0; t < T; ++t) y[t] = cfma(d[t][r], kv, y[t]);
+        }
+#pragma unroll
+        for (int t = 0; t < T; ++t) sp[(t * ROWS + o) * M + k] = y[t];
+      }
+    }
+    __syncthreads();
+
+    // 3. the inverse transforms; pass 3's outputs untwisted, divided by M,
+    // rounded and added into acc
+#pragma unroll
+    for (int f = g; f < T * ROWS; f += GROUPS) {
+      double2* s = sp + f * M;
+      double2 x[16];
+#pragma unroll
+      for (int q = 0; q < 16; ++q) x[q] = s[swz(j + FT * q)];
+      dft16<true>(x);
+      pass1_store(s, x, j);
+    }
+    __syncthreads();
+    pass2<true, T>(sp, w, g, j);
+#pragma unroll
+    for (int f = g; f < T * ROWS; f += GROUPS) {
+      const int t = f / OUTS, o = f % OUTS, limb = o % NL;
+      const int wbits = limb == 0 ? 0 : 8 + 8 * limb;   // 0, 16, 24
+      uint32_t* p = acc + (t * K1 + o / NL) * N;
+#pragma unroll 1
+      for (int u = 0; u < 4; ++u) {
+        const int jj = j + FT * u;
+        double2 x[4];
+        pass3<true>(sp + f * M, w, jj, x);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int m = jj + 256 * q;
+          const double2 y = cmul(x[q], tab<true>(twist, m));
+          const long long re = __double2ll_rn(y.x * (1.0 / M));
+          const long long im = __double2ll_rn(y.y * (1.0 / M));
+          atomicAdd(p + m, (uint32_t)re << wbits);
+          atomicAdd(p + m + M, (uint32_t)im << wbits);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  for (int e = tid; e < T * K1 * N; e += THREADS)
+    if (b0 + e / (K1 * N) < B)
+      acc_out[(size_t)b0 * K1 * N + e] = (int32_t)acc[e];
+}
+
+// One spectral rotation of B instances on `stream`, T = 1 instance a block
+// while B blocks fit one wave of the card, else 2; returns a cudaError_t.
+int rotate(const int32_t* cts_ms, const int32_t* luts, const int32_t* lut_idx,
+           const double2* key, const double2* tables, int32_t* acc, int B,
+           int n, int base_log, cudaStream_t stream) {
+  static bool opted[2] = {false, false};
+  const int T = B > kWave ? 2 : 1;
+  void (*kern)(const int32_t*, const int32_t*, const int32_t*, const double2*,
+               const double2*, int32_t*, int, int, int) =
+      T == 1 ? ext_product<1> : ext_product<2>;
+  if (!opted[T - 1]) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes(T));
+    if (err != cudaSuccess) return (int)err;
+    opted[T - 1] = true;
+  }
+  kern<<<(B + T - 1) / T, THREADS, smem_bytes(T), stream>>>(
+      cts_ms, luts, lut_idx, key, tables, acc, B, n, base_log);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace spectral
+
 }  // namespace
 
 extern "C" {
@@ -424,6 +791,26 @@ int fhe_blind_rotate(const int32_t* cts_ms, const int32_t* luts,
   return rotate32(cts_ms, luts, lut_idx, reinterpret_cast<const uint32_t*>(bsk),
                   reinterpret_cast<uint32_t*>(acc), digits, B, n, k1, N, level,
                   base_log, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The whole blind rotation through the spectral key (spectral::rotate),
+// enqueued on `stream`; returns a cudaError_t.
+//   cts_ms  [B, n+1] int32 in [0, 2N)      luts [L, N]    lut_idx [B]
+//   key     [n, k1*level, k1, 3, N/2] complex128 (ops/pbs_fft.PLAN limbs)
+//   tables  [2, N/2] complex128: the twist, the transform's twiddles
+//   acc     [B, k1, N] (output)
+// Takes N = 2048, k1 = 2, level = 3 and 32 - base_log*level >= 1 only.
+int fhe_blind_rotate_spectral(const int32_t* cts_ms, const int32_t* luts,
+                              const int32_t* lut_idx, const double* key,
+                              const double* tables, int32_t* acc, int B,
+                              int n, int k1, int N, int level, int base_log,
+                              void* stream_ptr) {
+  if (N != spectral::N || k1 != spectral::K1 || level != spectral::LEVEL)
+    return (int)cudaErrorInvalidValue;
+  return spectral::rotate(cts_ms, luts, lut_idx,
+                          reinterpret_cast<const double2*>(key),
+                          reinterpret_cast<const double2*>(tables), acc, B, n,
+                          base_log, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // The same rotation over batch blocks of tb instances, one after another

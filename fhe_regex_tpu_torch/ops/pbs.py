@@ -239,18 +239,22 @@ class DeviceServerKey:
     int64 at 64 bits (for ``cuda64-bg`` rounded by ``drop64``, see
     ``pbs64.round_bsk64``); ``ksk`` the float64 keyswitch matrix of
     ``prepare_ksk`` / ``pbs64.prepare_ksk64``.  For ``fft``, ``bsk`` is
-    the key's complex128 spectrum (``pbs_fft.prepare_bsk_fft``).
+    the key's complex128 spectrum (``pbs_fft.prepare_bsk_fft``).  ``spec``
+    is the same spectrum, beside the key, for ``cuda-fused`` and ``cuda-bg``
+    where their spectral rotation takes the set
+    (``pbs_cuda.spectral_supported``), else None.
     """
 
     def __init__(self, params: Params, backend: str, device: torch.device,
                  bsk: torch.Tensor, ksk: torch.Tensor,
-                 drop64: tuple = (0, 0)):
+                 drop64: tuple = (0, 0), spec: "torch.Tensor | None" = None):
         self.params = params
         self.backend = backend
         self.device = device
         self.bsk = bsk
         self.ksk = ksk
         self.drop64 = drop64
+        self.spec = spec
 
 
 def resolve_backend(backend: Optional[str],
@@ -290,14 +294,18 @@ def prepare_server_key(params: Params, server_key,
     if params.torus_bits == 32:
         ksk = torch.from_numpy(
             np.ascontiguousarray(server_key.ksk).view(np.int32)).to(device)
-        if backend == "fft":
-            from fhe_regex_tpu_torch.ops.pbs_fft import prepare_bsk_fft
+        from fhe_regex_tpu_torch.ops import pbs_cuda, pbs_fft
 
-            bsk = prepare_bsk_fft(params, server_key.bsk, device)
-        else:
-            bsk = torch.from_numpy(
-                np.ascontiguousarray(server_key.bsk).view(np.int32)).to(device)
-        return DeviceServerKey(params, backend, device, bsk, prepare_ksk(ksk))
+        bsk = torch.from_numpy(
+            np.ascontiguousarray(server_key.bsk).view(np.int32)).to(device)
+        spec = None
+        if backend == "fft":
+            bsk = pbs_fft.prepare_bsk_fft(params, bsk)
+        elif (backend in ("cuda-fused", "cuda-bg")
+              and pbs_cuda.spectral_supported(params)):
+            spec = pbs_fft.prepare_bsk_fft(params, bsk)
+        return DeviceServerKey(params, backend, device, bsk, prepare_ksk(ksk),
+                               spec=spec)
     drop = (0, 0)
     bsk = server_key.bsk
     if backend == "cuda64-bg":
@@ -315,7 +323,7 @@ def rotation_fn(dev_key: DeviceServerKey):
     (luts, lut_idx, cts_ms) -> accumulators: the plain one, or a kernel
     wrapper of ``ops/pbs_cuda.py``.  ``cuda64-bg`` gets the key's
     ``drop64``, the drop its key was rounded by; ``fft`` runs on its
-    spectral key."""
+    spectral key; ``cuda-fused`` and ``cuda-bg`` get the key's ``spec``."""
     from fhe_regex_tpu_torch.ops import pbs_cuda, pbs_fft
 
     rotations = {
@@ -332,7 +340,11 @@ def rotation_fn(dev_key: DeviceServerKey):
     if backend not in rotations:
         raise ValueError(backend)
     rotate = rotations[backend]
-    kw = {"drop": tuple(dev_key.drop64)} if backend == "cuda64-bg" else {}
+    kw = {}
+    if backend == "cuda64-bg":
+        kw = {"drop": tuple(dev_key.drop64)}
+    elif backend in ("cuda-fused", "cuda-bg"):
+        kw = {"spec": dev_key.spec}
     return lambda luts, lut_idx, cts_ms: rotate(params, bsk, luts, lut_idx,
                                                 cts_ms, **kw)
 

@@ -5,9 +5,16 @@ the whole n-step CMUX ladder for a batch, with the LUT selection and the
 initial X^{-b~} rotation built on the device, or one CMUX stage at a time.
 
   ``blind_rotate_fused``      32-bit, ``csrc/blind_rotate.cu``
-                              (``_fused_blindrot_kernel``)
+                              (``_fused_blindrot_kernel``): through the
+                              spectral key (``spectral::ext_product``,
+                              float64 FFTs) where the key has one (the
+                              sets of ``spectral_supported``), else the
+                              int8 limb GEMM (``stage1`` and
+                              ``ext_product`` each step)
   ``blind_rotate_fused_bg``   32-bit over batch blocks, same source
-                              (``_fused_blindrot_bg_kernel``)
+                              (``_fused_blindrot_bg_kernel``); with the
+                              spectral key, the spectral rotation of the
+                              whole batch
   ``stage1_digits``           one CMUX step's digits, same source
                               (``_stage1_kernel``)
   ``stage1_digits64``         one CMUX step's 64-bit digit limbs, the pass
@@ -25,6 +32,10 @@ initial X^{-b~} rotation built on the device, or one CMUX stage at a time.
                               ``_fused_blindrot64_kernel``)
   ``blind_rotate_fused64_bg`` 64-bit over batch blocks, same source
                               (``_fused_blindrot64_bg_kernel``)
+
+``rotation_steps()`` counts the CMUX steps x rows of the 32-bit fused
+rotations by the path they took, ``spectral`` or ``limb``, and
+``rotation_launches()`` their launches by the kernel each launched.
 
 Every wrapper takes its plain PyTorch version (``ops/pbs.py``,
 ``ops/pbs64.py``) on CPU tensors and launches its kernel on CUDA tensors,
@@ -44,6 +55,7 @@ from __future__ import annotations
 
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -139,6 +151,7 @@ def _load():
         signatures = {   # (pointers, ints), then the stream
             "fhe_blind_rotate": (6, 6),
             "fhe_blind_rotate_bg": (6, 7),
+            "fhe_blind_rotate_spectral": (6, 6),
             "fhe_stage1_digits": (3, 5),
             "fhe_external_product_rows": (4, 4),
             "fhe_blind_rotate64": (6, 10),
@@ -239,21 +252,100 @@ def _launch(entry: str, params: Params, bsk, luts, lut_idx, cts_ms,
     return acc
 
 
+_ROTATION_STEPS = {"spectral": 0, "limb": 0}
+_ROTATION_LAUNCHES = {"fhe_blind_rotate_spectral": 0, "fhe_blind_rotate": 0,
+                      "fhe_blind_rotate_bg": 0}
+
+
+def rotation_steps() -> dict:
+    """{"spectral": n, "limb": n}: CMUX steps x rows of the 32-bit fused
+    rotations (``blind_rotate_fused``, ``blind_rotate_fused_bg``) on the
+    card, by the path each took (what a CUDA graph replays is not
+    counted; neither backend is captured by default)."""
+    return dict(_ROTATION_STEPS)
+
+
+def rotation_launches() -> dict:
+    """{entry point: launches} of the same rotations, by the kernel each
+    launched: the spectral one, or the limb GEMM of ``blind_rotate_fused``
+    or of ``blind_rotate_fused_bg``.  Kept apart from ``launch_counts``,
+    whose wrappers count either."""
+    return dict(_ROTATION_LAUNCHES)
+
+
+def spectral_supported(params: Params) -> bool:
+    """Whether the spectral rotation takes this parameter set: 32 bits,
+    N = 2048, k = 1, l = 3 (its transforms and slots are sized for them)."""
+    return (params.torus_bits == 32 and params.polynomial_size == 2048
+            and params.glwe_dimension == 1 and params.pbs_level == 3)
+
+
+@functools.lru_cache(maxsize=None)
+def _spectral_tables(N: int, device: torch.device) -> torch.Tensor:
+    """The twist and twiddle tables on ``device``, made once (a copy to
+    the device inside a CUDA graph capture would break it)."""
+    from fhe_regex_tpu_torch.ops.pbs_fft import spectral_tables
+
+    return spectral_tables(N, device)
+
+
+def _rotate_spectral(params: Params, spec: torch.Tensor, luts, lut_idx,
+                     cts_ms) -> torch.Tensor:
+    """One launch of the spectral rotation on the key spectrum ``spec``
+    [n, (k+1)l, k+1, 3, N/2] complex128 (``pbs_fft.prepare_bsk_fft``)."""
+    from fhe_regex_tpu_torch.ops.pbs_fft import C128, PLAN
+
+    if not spectral_supported(params):
+        raise ValueError(f"{params.name}: the spectral rotation takes N = "
+                         f"2048, k = 1, l = 3 only")
+    k1, N, n = (params.glwe_dimension + 1, params.polynomial_size,
+                params.lwe_dimension)
+    B, dev = cts_ms.shape[0], cts_ms.device
+    _check("spec", spec, (n, k1 * params.pbs_level, k1, len(PLAN), N // 2),
+           C128, dev)
+    acc = torch.empty((B, k1, N), device=dev, dtype=torch.int32)
+    _call("fhe_blind_rotate_spectral", dev, cts_ms.data_ptr(),
+          luts.data_ptr(), lut_idx.data_ptr(), spec.data_ptr(),
+          _spectral_tables(N, dev).data_ptr(), acc.data_ptr(), B, n, k1, N,
+          params.pbs_level, params.pbs_base_log)
+    return acc
+
+
+def _rotate32(entry: str, params: Params, bsk, luts, lut_idx, cts_ms,
+              tb, spec) -> torch.Tensor:
+    """The spectral rotation where ``spec`` is given, else the limb GEMM's
+    ``entry``; counts the launch and the steps by path.  No width goes to
+    the limb GEMM when a spectrum is given: the spectral rotation is the
+    faster at every batch from 8 to 1024 rows (``chip_smoke.py`` phase 18
+    sweeps both)."""
+    if spec is not None:
+        acc = _rotate_spectral(params, spec, luts, lut_idx, cts_ms)
+        entry, path = "fhe_blind_rotate_spectral", "spectral"
+    else:
+        acc = _launch(entry, params, bsk, luts, lut_idx, cts_ms, tb)
+        path = "limb"
+    _ROTATION_LAUNCHES[entry] += 1
+    _ROTATION_STEPS[path] += params.lwe_dimension * cts_ms.shape[0]
+    return acc
+
+
 def blind_rotate_fused(params: Params, bsk: torch.Tensor, luts: torch.Tensor,
-                       lut_idx: torch.Tensor,
-                       cts_ms: torch.Tensor) -> torch.Tensor:
+                       lut_idx: torch.Tensor, cts_ms: torch.Tensor,
+                       spec: "torch.Tensor | None" = None) -> torch.Tensor:
     """[B, n+1] mod-switched cts -> [B, k+1, N] int32 accumulators.
 
     Same contract as ``ops.pbs.blind_rotate``: bsk [n, (k+1)l, k+1, N] int32,
     luts [L, N] int32, lut_idx [B] int32 with values in [0, L).  CPU tensors
     take that plain version; CUDA tensors launch the kernel (each call adds
-    one to ``blind_rotate_fused.launches``).
+    one to ``blind_rotate_fused.launches``): the spectral rotation on
+    ``spec``, the key's spectrum (``DeviceServerKey.spec``), where it is
+    given, else the limb GEMM on ``bsk``.
     """
     if not _on_cuda("blind rotation", cts_ms):
         return blind_rotate(params, bsk, luts, lut_idx, cts_ms)
     _check32(params, bsk, luts, lut_idx, cts_ms)
-    acc = _launch("fhe_blind_rotate", params, bsk, luts, lut_idx, cts_ms,
-                  None)
+    acc = _rotate32("fhe_blind_rotate", params, bsk, luts, lut_idx, cts_ms,
+                    None, spec)
     blind_rotate_fused.launches += 1
     return acc
 
@@ -296,8 +388,8 @@ def _resolve_tb(B: int, tb: "int | None", cap: int, fallback: str) -> int:
 
 def blind_rotate_fused_bg(params: Params, bsk: torch.Tensor,
                           luts: torch.Tensor, lut_idx: torch.Tensor,
-                          cts_ms: torch.Tensor,
-                          tb: "int | None" = None) -> torch.Tensor:
+                          cts_ms: torch.Tensor, tb: "int | None" = None,
+                          spec: "torch.Tensor | None" = None) -> torch.Tensor:
     """``blind_rotate_fused`` over batch blocks of ``tb`` instances, one
     block's whole rotation after another (the JAX ``pallas-bg`` backend,
     block-major as it runs at 32 bits).
@@ -306,14 +398,22 @@ def blind_rotate_fused_bg(params: Params, bsk: torch.Tensor,
     with none, or an explicit ``tb`` that does not cover B exactly, raises
     ValueError.  CPU tensors take the plain ``blind_rotate``; CUDA tensors
     launch the kernel (each call adds one to
-    ``blind_rotate_fused_bg.launches``).
+    ``blind_rotate_fused_bg.launches``).  With ``spec`` it runs the spectral
+    rotation as ``blind_rotate_fused`` does, over the whole batch of any
+    B: that kernel keeps no working set in L2 that batch blocks would
+    bound, so it takes no ``tb`` (an explicit one raises ValueError).
     """
-    tb = _resolve_tb(cts_ms.shape[0], tb, BG_CAP, "blind_rotate_fused")
+    if spec is not None:
+        if tb is not None:
+            raise ValueError(f"batch block tb={tb}: the spectral rotation "
+                             f"takes the whole batch")
+    else:
+        tb = _resolve_tb(cts_ms.shape[0], tb, BG_CAP, "blind_rotate_fused")
     if not _on_cuda("blind rotation", cts_ms):
         return blind_rotate(params, bsk, luts, lut_idx, cts_ms)
     _check32(params, bsk, luts, lut_idx, cts_ms)
-    acc = _launch("fhe_blind_rotate_bg", params, bsk, luts, lut_idx,
-                  cts_ms, tb)
+    acc = _rotate32("fhe_blind_rotate_bg", params, bsk, luts, lut_idx,
+                    cts_ms, tb, spec)
     blind_rotate_fused_bg.launches += 1
     return acc
 

@@ -12,12 +12,13 @@ inverse FFT (times conj(t)) gives the coefficients back.
 
 The GGSW key polynomials are split into signed balanced limbs of widths
 ``PLAN`` = (16, 8, 8), low to high (the JAX package's limb plan "mixed"),
-and their spectra are computed once on the host in float64.  Unlike
-there, the device side runs in float64 (complex128) too: the largest
-per-limb value, 64 * 2^15 * N * (k+1)l ~= 2^34.6 for the 16-bit limb at
-N = 2048, lies far inside the 53-bit mantissa, so every limb rounds to its
-exact integer.  Each limb is rounded to int64, scaled by its weight and
-the sum wrapped mod 2^32: the backend is bit-identical to the exact ones
+and their spectra are computed once in float64 on the key's device,
+where the JAX package rounds them to float32.  The rotation runs in
+float64 (complex128) too: the largest per-limb value, 64 * 2^15 * N *
+(k+1)l ~= 2^34.6 for the 16-bit limb at N = 2048, lies far inside the
+53-bit mantissa, so every limb rounds to its exact integer.  Each limb
+is rounded to int64, scaled by its weight and the sum wrapped mod 2^32:
+the backend is bit-identical to the exact ones
 (``torch``, ``cuda-fused``) and to the JAX ``fft`` on any limb plan that
 is exact in float32 there ("8").  So the port has one plan and one
 transform and reads neither ``FHE_REGEX_FFT_LIMBS`` nor
@@ -50,7 +51,7 @@ C128 = torch.complex128
 PLAN = (16, 8, 8)
 
 
-# ---------------- host-side key preparation ----------------
+# ---------------- key preparation ----------------
 
 
 def plan_weights(plan: tuple) -> tuple:
@@ -63,23 +64,24 @@ def plan_weights(plan: tuple) -> tuple:
     return tuple(out)
 
 
-def _limbs_signed(x: np.ndarray, plan: tuple) -> np.ndarray:
-    """int32 torus values -> len(plan) balanced signed limbs (new leading
-    axis), limb lb holding `plan[lb]` bits at weight 2^plan_weights[lb].
+def _limbs_signed(x: torch.Tensor, plan: tuple) -> torch.Tensor:
+    """int32 torus values -> len(plan) balanced signed int64 limbs (new
+    leading axis), limb lb holding `plan[lb]` bits at weight
+    2^plan_weights[lb].
 
     Limbs lie in [-2^(bits-1), 2^(bits-1)]; the final +-1 carry has weight
     2^32 and vanishes mod 2^32.
     """
-    v = x.astype(np.int64)
-    out = np.empty((len(plan),) + x.shape, np.int64)
-    for lb, bits in enumerate(plan):
+    v = x.to(I64)
+    out = []
+    for bits in plan:
         half = 1 << (bits - 1)
         mask = (1 << bits) - 1
         d = ((v + half) & mask) - half
-        out[lb] = d
+        out.append(d)
         v = (v - d) >> bits
-    assert np.all(np.abs(v) <= 1), "limb decomposition out of range"
-    return out
+    assert bool((v.abs() <= 1).all()), "limb decomposition out of range"
+    return torch.stack(out)
 
 
 def _twist(N: int) -> np.ndarray:
@@ -87,30 +89,39 @@ def _twist(N: int) -> np.ndarray:
     return np.exp(1j * np.pi * np.arange(M) / N)
 
 
-def negacyclic_fft_host(a: np.ndarray) -> np.ndarray:
-    """[..., N] real -> [..., M] complex128 negacyclic spectrum (f64)."""
+def negacyclic_fft(a: torch.Tensor) -> torch.Tensor:
+    """[..., N] float64 -> [..., M] complex128 negacyclic spectrum, by
+    ``torch.fft`` on a's device."""
     N = a.shape[-1]
     M = N // 2
-    t = _twist(N)
-    u = (a[..., :M] + 1j * a[..., M:]) * t
-    return np.fft.fft(u, axis=-1)
+    t = torch.from_numpy(_twist(N)).to(a.device)
+    return torch.fft.fft(torch.complex(a[..., :M], a[..., M:]) * t, dim=-1)
 
 
-def prepare_bsk_fft(params: Params, bsk: np.ndarray,
-                    device="cpu") -> torch.Tensor:
-    """bsk [n, (k+1)l, k+1, N] uint32 -> spectral key [n, (k+1)l, k+1, L,
-    M] complex128 on ``device``, L = len(PLAN).
+def prepare_bsk_fft(params: Params, bsk, device=None,
+                    chunk: int = 128) -> torch.Tensor:
+    """bsk [n, (k+1)l, k+1, N] (a uint32 array or an int32 tensor) ->
+    spectral key [n, (k+1)l, k+1, L, M] complex128, L = len(PLAN), on
+    ``device`` (default: the tensor's own, a host array's the CPU).
 
-    The spectra come from the float64 host FFT of each limb, not rounded to
-    float32 as the JAX package rounds them.  Row order along axis 1 is
+    The limbs of ``PLAN`` and their float64 spectra (cuFFT on a card), not
+    rounded to float32 as the JAX package rounds them, ``chunk`` steps at a
+    time.  The spectrum of ``fft``'s key and of ``cuda-fused``'s and
+    ``cuda-bg``'s spectral rotation.  Row order along axis 1 is
     (component, level), the most significant gadget digit first, as
     ``stage1_digits`` gives the digits.
     """
-    limbs = _limbs_signed(np.asarray(bsk).view(np.int32), PLAN)  # [L, n, ...]
-    spec = negacyclic_fft_host(limbs.astype(np.float64))          # [L, ..., M]
-    del limbs
-    spec = np.ascontiguousarray(np.moveaxis(spec, 0, 3))   # [n, rows, k1, L, M]
-    return torch.from_numpy(spec).to(device)
+    if not isinstance(bsk, torch.Tensor):
+        bsk = torch.from_numpy(np.ascontiguousarray(bsk).view(np.int32))
+    if device is not None:
+        bsk = bsk.to(device)
+    n, rows, k1, N = bsk.shape
+    out = torch.empty((n, rows, k1, len(PLAN), N // 2), dtype=C128,
+                      device=bsk.device)
+    for i0 in range(0, n, chunk):
+        limbs = _limbs_signed(bsk[i0:i0 + chunk], PLAN).to(F64)
+        out[i0:i0 + chunk] = negacyclic_fft(limbs).movedim(0, 3)
+    return out
 
 
 # ---------------- blind rotation ----------------
@@ -160,3 +171,15 @@ def blind_rotate_fft(params: Params, bsk_spec: torch.Tensor,
         out = (torch.round(vals).to(I64) * weights).sum(dim=2)  # [B, k1, N]
         acc = wrap_i32(acc.to(I64) + out)
     return acc
+
+
+# ---------------- the spectral rotation's tables ----------------
+
+
+def spectral_tables(N: int, device="cpu") -> torch.Tensor:
+    """[2, M] complex128: the twist t_j = e^{i pi j / N} and the transform's
+    twiddles w_k = e^{-2 pi i k / M}, the two tables that ``cuda-fused``'s
+    spectral rotation (``csrc/blind_rotate.cu``) reads."""
+    M = N // 2
+    w = np.exp(-2j * np.pi * np.arange(M) / M)
+    return torch.from_numpy(np.stack([_twist(N), w])).to(device)

@@ -170,7 +170,9 @@ class MatchService:
         / levels), the watchdog's EMA seconds per launch shape, and the
         per-level timings of the last profiled match; beyond the JAX
         daemon's, the launches of each CUDA kernel wrapper in this process
-        (``ops.pbs_cuda.launch_counts``: zero on the CPU path)."""
+        (``ops.pbs_cuda.launch_counts``: zero on the CPU path), and the CMUX
+        steps x rows of the 32-bit fused rotations by path
+        (``ops.pbs_cuda.rotation_steps``: spectral or limb)."""
         from fhe_regex_tpu_torch.ops import pbs_cuda
 
         programs = []
@@ -197,6 +199,7 @@ class MatchService:
                 "launch_ema_s": self.executor.watchdog.snapshot(),
                 "last_profile": self._last_profile,
                 "kernel_launches": pbs_cuda.launch_counts(),
+                "rotation_steps": pbs_cuda.rotation_steps(),
             }
 
     def _program(self, pattern, fold: str, branch_budget,

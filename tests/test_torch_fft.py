@@ -74,18 +74,32 @@ def test_limbs_and_weights_equal_jax(plan):
     rng = np.random.default_rng(0)
     x = rng.integers(-2**31, 2**31, size=5000, dtype=np.int64)
     x = np.concatenate([[-2**31, -1, 0, 1, 2**31 - 1], x]).astype(np.int32)
-    assert np.array_equal(tfft._limbs_signed(x, plan),
+    assert np.array_equal(tfft._limbs_signed(torch.from_numpy(x), plan),
                           jfft._limbs_signed(x, plan))
     assert tfft.plan_weights(plan) == jfft.plan_weights(plan)
     assert tfft.PLAN == jfft.resolve_plan("mixed")
 
 
 @pytest.mark.parametrize("M", [2, 8, 64, 128, 512, 1024, 2048])
-def test_host_spectrum_equals_jax(M):
+def test_spectrum_multiplies_negacyclically(M):
+    """``negacyclic_fft`` (torch) is the JAX package's host spectrum to
+    float64 rounding, and the inverse of a product of two spectra rounds
+    to the exact negacyclic product of a 16-bit limb and a 7-bit digit
+    polynomial."""
     rng = np.random.default_rng(M)
-    a = rng.integers(-2**15, 2**15, (2, 2 * M)).astype(np.float64)
-    assert np.array_equal(tfft.negacyclic_fft_host(a),
-                          jfft.negacyclic_fft_host(a))
+    N = 2 * M
+    a = rng.integers(-2**15, 2**15, (2, N))
+    b = rng.integers(-64, 65, (2, N))
+    A = tfft.negacyclic_fft(torch.from_numpy(a).double())
+    want = jfft.negacyclic_fft_host(a.astype(np.float64))
+    assert np.abs(A.numpy() - want).max() <= 1e-12 * np.abs(want).max()
+    y = torch.fft.ifft(A * tfft.negacyclic_fft(torch.from_numpy(b).double()))
+    y = y * torch.from_numpy(np.conj(tfft._twist(N)))
+    got = torch.round(torch.cat([y.real, y.imag], dim=-1)).long().numpy()
+    for row in range(2):
+        full = np.convolve(a[row], b[row])                     # degree 2N-2
+        exact = full[:N] - np.concatenate([full[N:], [0]])     # X^N = -1
+        assert np.array_equal(got[row], exact)
 
 
 @pytest.mark.parametrize("which", ["keys", "noisy_keys"])

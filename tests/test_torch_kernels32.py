@@ -550,3 +550,346 @@ def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
     header = src / "hopper.cuh"
     header.write_text(header.read_text() + "\n")
     assert pbs_cuda.library_path() != before
+
+
+# ---- the spectral rotation of cuda-fused / cuda-bg, its arithmetic ----
+# csrc/blind_rotate.cu's spectral::ext_product runs each CMUX step as
+# _spectral_step below computes it: fold and twist, Stockham transforms of
+# radix 16, 16, 4 on slots stored at swz(k), contraction with the key's
+# limb spectra (PLAN (16, 8, 8)), inverse, per-limb rounding,
+# recombination mod 2^32.  The twin must equal the exact step bit for bit.
+
+
+def _swz(k: torch.Tensor) -> torch.Tensor:
+    """The kernel's shared-memory slot of point k (bank-conflict swizzle)."""
+    return k ^ ((k >> 4) & 7)
+
+
+def _radices(M: int) -> tuple:
+    """The radices of the length-M transform: 16 while 16 divides what is
+    left, then the rest ((16, 16, 4) at M = 1024, the kernel's)."""
+    out = []
+    while M % 16 == 0 and M > 16:
+        out.append(16)
+        M //= 16
+    return tuple(out) + ((M,) if M > 1 else ())
+
+
+def _dft_matrix(R: int, inverse: bool) -> torch.Tensor:
+    r = torch.arange(R)
+    sign = 1.0 if inverse else -1.0
+    return torch.exp(sign * 2j * np.pi * torch.outer(r, r).to(torch.float64)
+                     / R)
+
+
+def _dft(v: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The R-point DFTs over axis -2 of v [..., R, T].  At R = 16 as the
+    kernel's dft16: a 4 x 4, point n1 + 4 n2, whose output q lands in
+    register 4 (q mod 4) + q div 4 (at16) and is read back from there."""
+    R = v.shape[-2]
+    if R != 16:
+        return torch.einsum("qr,...rt->...qt", _dft_matrix(R, inverse), v)
+    F4 = _dft_matrix(4, inverse)
+    x = v.reshape(*v.shape[:-2], 4, 4, v.shape[-1])            # [n2, n1]
+    x = torch.einsum("kn,...nit->...kit", F4, x)                # [k2, n1]
+    x = x * _dft_matrix(16, inverse)[:4, :4, None]              # w^(k2 n1)
+    regs = torch.einsum("kn,...jnt->...jkt", F4, x).reshape(v.shape)
+    q = torch.arange(16)
+    return regs[..., 4 * (q & 3) + (q >> 2), :]
+
+
+def _stockham(buf: torch.Tensor, w: torch.Tensor,
+              inverse: bool = False) -> torch.Tensor:
+    """The kernel's unnormalised transform of every slot of buf [..., M],
+    point k stored at _swz(k), natural order in and out: pass p of radix R
+    reads x[j + r M/R] for j < M/R, multiplies it by v^r, v = w[(j mod Ns)
+    M/(Ns R)] (Ns the product of the earlier radices; v^r by repeated
+    multiplication, as the kernel takes it, conjugated for the inverse),
+    and writes output q to (j div Ns) Ns R + (j mod Ns) + q Ns."""
+    M = buf.shape[-1]
+    tw = torch.conj(w) if inverse else w
+    Ns = 1
+    for R in _radices(M):
+        T = M // R
+        j, r = torch.arange(T), torch.arange(R)
+        v = buf[..., _swz(j[None, :] + r[:, None] * T)]        # [..., R, T]
+        base = tw[(j % Ns) * (M // (Ns * R))]
+        powers = torch.cumprod(base.expand(R - 1, T), dim=0)   # v^1 .. v^(R-1)
+        v = torch.cat([v[..., :1, :], v[..., 1:, :] * powers], dim=-2)
+        buf = torch.empty_like(buf)
+        dest = ((j // Ns) * Ns * R + j % Ns)[None, :] + r[:, None] * Ns
+        buf[..., _swz(dest)] = _dft(v, inverse)
+        Ns *= R
+    return buf
+
+
+def _spectral_step(digits: torch.Tensor, spec_i: torch.Tensor,
+                   acc: torch.Tensor):
+    """One CMUX step's external product as the spectral kernel computes it:
+    digits [B, (k+1)l, N] int8, spec_i [(k+1)l, k+1, L, M] complex128 (one
+    step of the spectral key), acc [B, k+1, N] int32 -> (the new acc, the
+    largest distance of any limb's value from its integer).
+
+    Fold and twist each digit row, u_j = (d_j + i d_{j+M}) t_j, into its
+    swizzled slot; transform; contract each frequency over the rows with
+    the key's spectra; inverse transform, untwist, divide by M; round each
+    limb to its integer, scale it by 2^weight and add it to acc mod 2^32."""
+    from fhe_regex_tpu_torch.ops import pbs_fft
+
+    N = digits.shape[-1]
+    M = N // 2
+    tw, w = pbs_fft.spectral_tables(N)
+    slot = _swz(torch.arange(M))
+    d = digits.to(torch.float64)
+    buf = torch.empty(d.shape[:-1] + (M,), dtype=torch.complex128)
+    buf[..., slot] = torch.complex(d[..., :M], d[..., M:]) * tw
+    D = _stockham(buf, w)[..., slot]                          # [B, rows, M]
+    P = torch.einsum("brm,rclm->bclm", D, spec_i)             # [B, k1, L, M]
+    buf = torch.empty_like(P)
+    buf[..., slot] = P
+    y = _stockham(buf, w, inverse=True)[..., slot] * torch.conj(tw) * (1 / M)
+    vals = torch.cat([y.real, y.imag], dim=-1)                # [B, k1, L, N]
+    r = torch.round(vals)
+    weights = torch.tensor([1 << s for s in pbs_fft.plan_weights(
+        pbs_fft.PLAN)], dtype=torch.int64)[:, None]
+    out = (r.to(torch.int64) * weights).sum(dim=2)
+    return (tpbs.wrap_i32(acc.to(torch.int64) + out),
+            float((vals - r).abs().max()))
+
+
+def _jax_step(digits: np.ndarray, ggsw: np.ndarray, acc: np.ndarray):
+    """The JAX reference's external product (ops/pbs.py's blind_rotate
+    step): acc + sum_r d_r @ M(ggsw[r, c]), int32 wraparound."""
+    M = jpbs._negacyclic_matrix(_j(ggsw))
+    out = jnp.einsum("brn,rcnm->bcm", jnp.asarray(digits.astype(np.int32)),
+                     M, preferred_element_type=jnp.int32)
+    return np.asarray(_j(acc) + out)
+
+
+def _spectral_case(P, ggsw: np.ndarray, digits: np.ndarray,
+                   acc: np.ndarray, jax_too: bool = True) -> float:
+    """The twin against the port's exact step (and the JAX reference);
+    returns the largest distance of a limb from its integer."""
+    from fhe_regex_tpu_torch.ops import pbs_fft
+
+    tp = _port_params(P) if hasattr(P, "name") else P
+    spec = pbs_fft.prepare_bsk_fft(tp, ggsw[None])[0]
+    got, dist = _spectral_step(torch.from_numpy(digits), spec, _t(acc))
+    want = tpbs.external_product_step(tp, torch.from_numpy(digits),
+                                      _t(ggsw), _t(acc))
+    assert torch.equal(got, want)
+    if jax_too:
+        assert np.array_equal(got.numpy(), _jax_step(digits, ggsw, acc))
+    return dist
+
+
+def _digits(rng, B, rows, N, half=64):
+    d = rng.integers(-half, half + 1, size=(B, rows, N)).astype(np.int8)
+    d[0, 0, :2] = [-half, half]
+    return d
+
+
+@pytest.mark.parametrize("which", ["keys", "noisy_keys"])
+def test_spectral_twin_equals_exact_step(request, which):
+    """At TEST_PARAMS / TEST_PARAMS_NOISY, on the first GGSW of the real
+    bootstrap key, random digits and accumulators: bit-equal to
+    ``ops.pbs.external_product_step`` and to the JAX reference."""
+    P = TEST_PARAMS if which == "keys" else TEST_PARAMS_NOISY
+    sk = request.getfixturevalue(which)[1]
+    N, k1 = P.polynomial_size, P.glwe_dimension + 1
+    rows = k1 * P.pbs_level
+    rng = np.random.default_rng(17)
+    ggsw = np.asarray(sk.bsk)[0].astype(np.uint32)
+    dist = _spectral_case(P, ggsw, _digits(rng, 5, rows, N),
+                          _random_u32(rng, (5, k1, N)))
+    print(f"{P.name}: largest distance of a limb from its integer {dist:.3g}")
+    assert dist < 1 / 8
+
+
+def test_spectral_twin_production_step():
+    """One step at the production set (N = 2048, l = 3, base 2^7): random
+    key words, digits and accumulators; bit-equal to both references."""
+    from fhe_regex_tpu_torch.params import get_params
+
+    P = get_params("TPU_MESSAGE_2_CARRY_2")
+    N, k1 = P.polynomial_size, P.glwe_dimension + 1
+    rows = k1 * P.pbs_level
+    rng = np.random.default_rng(2048)
+    dist = _spectral_case(P, _random_u32(rng, (rows, k1, N)),
+                          _digits(rng, 2, rows, N),
+                          _random_u32(rng, (2, k1, N)))
+    print(f"production step: largest distance of a limb from its integer "
+          f"{dist:.3g}")
+    assert dist < 1 / 8
+
+
+@pytest.mark.parametrize("sign", [-1, 1])
+def test_spectral_twin_worst_case_margin(sign):
+    """The largest limb values the production set can give: every digit at
+    -64 (or 64), every key word with each limb of PLAN (16, 8, 8) at its
+    extreme (-2^15, -2^7, -2^7), so that coefficient N-1 of every limb sums
+    64 * 2^b * N * (k+1)l with one sign.  Exact still, and each limb's
+    value lies within 1/8 of its integer (printed)."""
+    from fhe_regex_tpu_torch.ops import pbs_fft
+    from fhe_regex_tpu_torch.params import get_params
+
+    P = get_params("TPU_MESSAGE_2_CARRY_2")
+    N, k1 = P.polynomial_size, P.glwe_dimension + 1
+    rows = k1 * P.pbs_level
+    word = (-(1 << 15) - (1 << 7 << 16) - (1 << 7 << 24)) & 0xFFFFFFFF
+    limbs = pbs_fft._limbs_signed(
+        torch.from_numpy(np.array([word], np.uint32).view(np.int32)),
+        pbs_fft.PLAN)
+    assert limbs.ravel().tolist() == [-(1 << 15), -(1 << 7), -(1 << 7)]
+    ggsw = np.full((rows, k1, N), word, np.uint32)
+    digits = np.full((2, rows, N), 64 * sign, np.int8)
+    acc = _random_u32(np.random.default_rng(5), (2, k1, N))
+    dist = _spectral_case(P, ggsw, digits, acc, jax_too=False)
+    print(f"worst case, digits {64 * sign}: largest distance of a limb from "
+          f"its integer {dist:.3g}")
+    assert dist < 1 / 8
+
+
+@pytest.mark.parametrize("M", [128, 1024])
+def test_stockham_transform_is_the_dft(M):
+    """The kernel's transform (radices (16, 8) at M = 128, (16, 16, 4) at
+    1024, twiddles as powers of one table entry, slots at swz(k), dft16
+    read back through at16) is the DFT in natural order, forward and
+    (unnormalised) inverse; swz is a permutation of every slot."""
+    from fhe_regex_tpu_torch.ops import pbs_fft
+
+    assert _radices(1024) == (16, 16, 4)
+    slot = _swz(torch.arange(M))
+    assert sorted(slot.tolist()) == list(range(M))
+    rng = np.random.default_rng(M)
+    x = torch.from_numpy(rng.standard_normal((3, M))
+                         + 1j * rng.standard_normal((3, M)))
+    w = pbs_fft.spectral_tables(2 * M)[1]
+    buf = torch.empty_like(x)
+    buf[..., slot] = x
+    fwd = _stockham(buf, w)[..., slot]
+    inv = _stockham(buf, w, inverse=True)[..., slot]
+    assert float((fwd - torch.fft.fft(x)).abs().max()) < 1e-10
+    assert float((inv - torch.fft.ifft(x) * M).abs().max()) < 1e-10
+
+
+def test_spectral_twin_rotation_equals_blind_rotate(noisy_keys):
+    """A whole rotation of twin steps (``stage1_digits``, then the spectral
+    step on the key's spectrum) equals the plain ``blind_rotate``."""
+    from fhe_regex_tpu_torch.ops import pbs_fft
+
+    params, bsk, luts, idx, ms = _rotation_args(noisy_keys, 6, seed=3)
+    spec = pbs_fft.prepare_bsk_fft(params, bsk)
+    acc = tpbs.init_accumulator(params, luts, idx, ms)
+    for i in range(params.lwe_dimension):
+        d = tpbs.stage1_digits(params, acc, ms[:, i])
+        acc, dist = _spectral_step(d, spec[i], acc)
+        assert dist < 1 / 8
+    assert torch.equal(acc, tpbs.blind_rotate(params, bsk, luts, idx, ms))
+
+
+def test_device_spectrum_equals_host_spectrum(noisy_keys):
+    """``prepare_bsk_fft`` of the key as a tensor, where cuda-fused has it
+    (on the card), in chunks of 5 steps, is its spectrum of the host
+    array, bit for bit."""
+    from fhe_regex_tpu_torch.ops import pbs_fft
+
+    tsk = server_key_from_jax(noisy_keys[1])
+    got = pbs_fft.prepare_bsk_fft(tsk.params, _t(tsk.bsk), chunk=5)
+    want = pbs_fft.prepare_bsk_fft(tsk.params, tsk.bsk)
+    assert got.shape == want.shape == (16, 6, 2, 3, 128)
+    assert torch.equal(got, want)
+
+
+def test_spectral_kernels_carry_rotation_names():
+    """Every __global__ function of csrc/blind_rotate.cu, the spectral one
+    in its namespace too, is counted by the benchmark's trace reader as a
+    rotation kernel (``portbench.tracing.ROTATION_KERNELS``)."""
+    import re
+
+    from portbench.tracing import ROTATION_KERNELS
+
+    src = (pbs_cuda.CSRC / "blind_rotate.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                       r"\s*)?(\w+)\s*\(", src)
+    assert {"acc_init", "stage1", "ext_product"} <= set(names)
+    assert names.count("ext_product") == 2        # limb GEMM and spectral
+    for name in names:
+        assert ROTATION_KERNELS.search(name), name
+    for traced in ("void (anonymous namespace)::spectral::ext_product<2>("
+                   "int const*, int const*, int const*, double2 const*, "
+                   "double2 const*, int*, int, int, int)",
+                   "(anonymous namespace)::spectral::ext_product<1>"):
+        assert ROTATION_KERNELS.search(traced)
+
+
+def test_fused_rotations_count_steps_by_path(monkeypatch, noisy_keys):
+    """On the CUDA route (faked here) a rotation given the key's spectrum
+    takes the spectral kernel, one without the limb GEMM;
+    ``rotation_steps`` counts n x B steps on the path taken and
+    ``rotation_launches`` one launch of the kernel taken, for
+    ``blind_rotate_fused`` and ``blind_rotate_fused_bg`` alike."""
+    args = _rotation_args(noisy_keys, 8, seed=4)
+    params, B = args[0], 8
+    calls = []
+    monkeypatch.setattr(pbs_cuda, "_on_cuda", lambda what, t: True)
+    monkeypatch.setattr(pbs_cuda, "_check32", lambda *a: None)
+    monkeypatch.setattr(pbs_cuda, "_rotate_spectral",
+                        lambda *a: calls.append("spectral") or "s")
+    monkeypatch.setattr(pbs_cuda, "_launch",
+                        lambda entry, *a: calls.append(entry) or "l")
+    spec = torch.zeros(1)
+    steps = params.lwe_dimension * B
+    for fn, limb in ((pbs_cuda.blind_rotate_fused, "fhe_blind_rotate"),
+                     (pbs_cuda.blind_rotate_fused_bg, "fhe_blind_rotate_bg")):
+        before = pbs_cuda.rotation_steps()
+        launches = pbs_cuda.rotation_launches()
+        assert fn(*args, spec=spec) == "s"
+        assert fn(*args) == "l"
+        after = pbs_cuda.rotation_steps()
+        assert after == {"spectral": before["spectral"] + steps,
+                         "limb": before["limb"] + steps}
+        launches[limb] += 1
+        launches["fhe_blind_rotate_spectral"] += 1
+        assert pbs_cuda.rotation_launches() == launches
+    assert calls == ["spectral", "fhe_blind_rotate", "spectral",
+                     "fhe_blind_rotate_bg"]
+    assert set(pbs_cuda.rotation_launches()).isdisjoint(
+        pbs_cuda.launch_counts())
+
+
+def test_spectral_bg_takes_no_batch_block(monkeypatch, noisy_keys):
+    """With the key's spectrum ``blind_rotate_fused_bg`` rotates the whole
+    batch of any B, one with no 8-aligned block too, and refuses an
+    explicit ``tb``; without it the block rules stand."""
+    monkeypatch.setattr(pbs_cuda, "_on_cuda", lambda what, t: True)
+    monkeypatch.setattr(pbs_cuda, "_check32", lambda *a: None)
+    monkeypatch.setattr(pbs_cuda, "_rotate_spectral", lambda *a: "s")
+    args = _rotation_args(noisy_keys, 4, seed=5)
+    spec = torch.zeros(1)
+    assert pbs_cuda.blind_rotate_fused_bg(*args, spec=spec) == "s"
+    with pytest.raises(ValueError, match="takes the whole batch"):
+        pbs_cuda.blind_rotate_fused_bg(*args, tb=8, spec=spec)
+    with pytest.raises(ValueError, match="8-aligned blocks"):
+        pbs_cuda.blind_rotate_fused_bg(*args)
+
+
+def test_rotation_fn_hands_the_spectrum_on(monkeypatch, noisy_keys):
+    """``rotation_fn`` gives ``cuda-fused`` and ``cuda-bg`` the key's
+    ``spec``; only the production set's shapes have one."""
+    from fhe_regex_tpu_torch.params import get_params
+
+    tsk = server_key_from_jax(noisy_keys[1])
+    seen = {}
+    for backend, name in (("cuda-fused", "blind_rotate_fused"),
+                          ("cuda-bg", "blind_rotate_fused_bg")):
+        monkeypatch.setattr(pbs_cuda, name,
+                            lambda *a, **kw: seen.update({backend: kw}))
+        spec = torch.zeros(1)
+        dk = tpbs.DeviceServerKey(tsk.params, backend, torch.device("cpu"),
+                                  None, None, spec=spec)
+        tpbs.rotation_fn(dk)(None, None, None)
+        assert seen[backend]["spec"] is spec
+    assert pbs_cuda.spectral_supported(get_params("TPU_MESSAGE_2_CARRY_2"))
+    for name in ("TEST_PARAMS", "TEST_PARAMS_NOISY", "TPU64_MESSAGE_2_CARRY_2"):
+        assert not pbs_cuda.spectral_supported(get_params(name))

@@ -192,6 +192,22 @@ def test_stats_kernel_launches(both, servers):
     assert len(got) == 8 and not any(got.values())
 
 
+def test_stats_rotation_steps(both, servers):
+    """/stats reports the 32-bit fused rotations' CMUX steps x rows by
+    path, beside and not inside ``kernel_launches`` (whose keys are the
+    wrappers'); the CPU path takes neither."""
+    from fhe_regex_tpu_torch.ops import pbs_cuda
+
+    (ck, _), _ = both
+    turl, _, _ = servers
+    one = serve.encode_array(J.encrypt_str(ck, "xab"))
+    _post(turl, "/match", {"pattern": "/ab/", "ct": one})
+    stats = _get(turl, "/stats")
+    assert stats["rotation_steps"] == pbs_cuda.rotation_steps()
+    assert set(stats["rotation_steps"]) == {"spectral", "limb"}
+    assert not set(stats["rotation_steps"]) & set(stats["kernel_launches"])
+
+
 @pytest.mark.parametrize("req", [
     {"pattern": "/[0-9]/"},                              # Q4: parse error
     {"pattern": "/a*bc/", "branch_budget": 1},           # budget exceeded
