@@ -44,14 +44,14 @@ from fhe_regex_tpu_torch.crypto.keys import (
 from fhe_regex_tpu_torch.crypto import lwe as _lwe
 from fhe_regex_tpu_torch.regex.circuit import CircuitBuilder, Node
 from fhe_regex_tpu_torch.regex.engine import BranchBudgetExceeded, compile_match
-from fhe_regex_tpu_torch.regex.executor import (MAX_LEVEL_BATCH,
-                                                CompiledCircuit, Executor,
-                                                MvMarginError, _bucket,
+from fhe_regex_tpu_torch.regex.executor import (CompiledCircuit, Executor,
+                                                MvMarginError,
                                                 active_bsk_drop,
                                                 compile_circuit,
                                                 default_min_bucket)
 from fhe_regex_tpu_torch.ops.mv import has_mv_rotation
 from fhe_regex_tpu_torch.ops.pbs import prepare_server_key, resolve_backend
+from fhe_regex_tpu_torch.utils import trace
 
 __all__ = [
     "Params",
@@ -517,54 +517,6 @@ def has_match_many_positions(server_key: ServerKey, ct_contents,
                            roots, contents, wide_batch, "positions")
 
 
-def _or_reduce_bits(server_key: ServerKey, backend: Optional[str],
-                    device, bits: np.ndarray) -> np.ndarray:
-    """Homomorphic OR of M encrypted result bits -> one radix ciphertext.
-
-    bits [M, num_blocks, n+1]: block-0 rows carry the 0/1 (the executor's
-    root convention).  Log3-depth rounds of batched OR2/OR3 bootstraps
-    through the executor's PBS core, in launches of MAX_LEVEL_BATCH and a
-    power-of-two tail (the JAX package's CPU chunking).
-    """
-    from fhe_regex_tpu_torch.crypto.golden import make_lut_poly
-    from fhe_regex_tpu_torch.ops.luts import LUT_OR2, LUT_OR3, lut_fn
-
-    params = server_key.params
-    ex = executor_for(server_key, backend, device=device)
-    dt = ex._np_u
-    luts = np.stack([make_lut_poly(params, lut_fn(LUT_OR2)),
-                     make_lut_poly(params, lut_fn(LUT_OR3))])
-    luts_dev = ex._upload(luts.view(ex._np_s), ex._dtype)
-    rows = np.ascontiguousarray(bits[:, 0, :], dtype=dt)      # [M, n+1]
-    while rows.shape[0] > 1:
-        g = [rows[i:i + 3] for i in range(0, rows.shape[0], 3)]
-        carry = [grp for grp in g if grp.shape[0] == 1]
-        work = [grp for grp in g if grp.shape[0] > 1]
-        B = len(work)
-        sizes = [MAX_LEVEL_BATCH] * (B // MAX_LEVEL_BATCH)
-        if B % MAX_LEVEL_BATCH:
-            sizes.append(_bucket(B % MAX_LEVEL_BATCH, default_min_bucket()))
-        x = np.zeros((sum(sizes), rows.shape[1]), dt)
-        idx = np.zeros(sum(sizes), np.int32)
-        with np.errstate(over="ignore"):
-            for j, grp in enumerate(work):
-                x[j] = grp[0] + dt(2) * grp[1]
-                if grp.shape[0] == 3:
-                    x[j] += dt(4) * grp[2]
-                    idx[j] = 1
-        outs, c0 = [], 0
-        for w in sizes:
-            outs.append(ex._core(
-                luts_dev, ex._upload(idx[c0:c0 + w]),
-                ex._upload(x[c0:c0 + w].view(ex._np_s), ex._dtype)).cpu())
-            c0 += w
-        out = torch.cat(outs).numpy()[:B].view(dt)
-        rows = np.concatenate([out] + carry)
-    res = np.zeros((params.num_blocks, params.lwe_dimension + 1), dt)
-    res[0] = rows[0]
-    return res
-
-
 def _window_plan(span: int, L: int, window: Optional[int]):
     """Shared window layout for long-content matching: (W, starts).
 
@@ -590,6 +542,77 @@ def _long_plan(pattern: str, L: int):
     return max_match_span(re), has_anchor(re, _P.SOF), has_anchor(re, _P.EOF)
 
 
+def _long_layout(pattern: str, L: int, window: Optional[int]) -> tuple:
+    """How long-content matching covers L characters: ("windows", W,
+    starts), overlapping windows of W characters at ``starts``;
+    ("direct", lo, hi), the direct circuit over characters [lo, hi); or
+    ("false",), no match is possible.
+
+    When the pattern's maximum match span is bounded, any match fits
+    inside a window (stride = window - span).  Anchored patterns reduce to
+    single flush windows (`^`: the first span+1 chars; `$`: the last span
+    chars; both: FALSE beyond the span, where the anchored pattern must
+    span all L chars but can consume at most `span`, as every branch of
+    the direct circuit is pruned); unbounded-span patterns, empty content
+    and contents no longer than a window take the direct circuit."""
+    span, sof, eof = _long_plan(pattern, L)
+    if span is None or L == 0:
+        return "direct", 0, L
+    if sof and eof:
+        return ("direct", 0, L) if L <= span else ("false",)
+    if sof:
+        return "direct", 0, min(L, span + 1)
+    if eof:
+        return "direct", L - min(L, max(span, 1)), L
+    W, starts = _window_plan(span, L, window)
+    return ("windows", W, starts) if starts else ("direct", 0, L)
+
+
+def _no_match(params: Params, C: int) -> np.ndarray:
+    """[C, num_blocks, n+1] trivial encryptions of 0."""
+    dt = np.uint32 if params.torus_bits == 32 else np.uint64
+    return np.zeros((C, params.num_blocks, params.lwe_dimension + 1), dt)
+
+
+def _match_windows(executor: Executor, circuit: CompiledCircuit,
+                   contents: np.ndarray, W: int, starts,
+                   wide_batch: Optional[bool] = None) -> tuple:
+    """Windowed matching of C long contents with a compiled window circuit
+    (the pattern at length W) on ``executor``: the windows of every
+    content go through ONE ``run_many``, whose root rows stay on the
+    device, then each content's window bits OR-reduce there
+    (``Executor.or_reduce``, one download a content).
+
+    -> ([C, num_blocks, n+1], OR seconds: the ``long.or_reduce`` span,
+    from the first OR launch to the last answer on the host)."""
+    C, M = contents.shape[0], len(starts)
+    wins = np.stack([contents[c, a:a + W] for c in range(C) for a in starts])
+    bits = executor.run_many(circuit, wins, wide_batch=wide_batch,
+                             roots_on_device=True)
+    with trace.Span("long.or_reduce") as sp:
+        out = np.stack([executor.or_reduce(bits[c * M:(c + 1) * M])
+                        for c in range(C)])
+    return out, sp.seconds
+
+
+def _long_windows(server_key: ServerKey, contents: np.ndarray, pattern: str,
+                  W: int, starts, backend, fold, engine, branch_budget,
+                  wide_batch, multivalue, device) -> np.ndarray:
+    """``_match_windows`` with the window circuit ``has_match_many``
+    compiles (packed: multi-value by the auto rule)."""
+    params = server_key.params
+    builder, root = _compile_single(params, W, pattern, fold, engine,
+                                    branch_budget)
+    circuit = _compile(server_key, builder, root, backend, device,
+                       multivalue, packed=True)
+    executor = executor_for(server_key, backend, device=device)
+    out, _ = _match_windows(executor, circuit, contents, W, starts,
+                            wide_batch)
+    logger.info("%d long contents: %d chars -> %d windows of %d each",
+                contents.shape[0], contents.shape[1], len(starts), W)
+    return out
+
+
 def has_match_long(server_key: ServerKey, ct_content: np.ndarray,
                    pattern: str, window: Optional[int] = None,
                    backend: Optional[str] = None, fold: str = "tree",
@@ -603,50 +626,25 @@ def has_match_long(server_key: ServerKey, ct_content: np.ndarray,
     When the pattern's maximum match span is bounded, any match fits inside
     a fixed-size window, so the content is scanned as overlapping windows
     (stride = window - span) batched through ``run_many`` and the window
-    bits are OR-reduced homomorphically.  Decrypts identically to
-    ``has_match`` on the full content.  Anchored patterns reduce to single
-    flush windows (`^`: the first span+1 chars; `$`: the last span chars;
-    both: trivial FALSE beyond the span); unbounded-span patterns fall back
-    to the direct circuit.  ``engine`` and ``multivalue`` go to
-    ``has_match`` and ``has_match_many`` as given (multivalue: auto on the
-    windows' packed run).
+    bits are OR-reduced homomorphically on the device.  Decrypts
+    identically to ``has_match`` on the full content.  Anchored patterns
+    reduce to single flush windows and unbounded-span patterns fall back
+    to the direct circuit (``_long_layout``).  ``engine`` and
+    ``multivalue`` go to ``has_match`` and the windows' packed run as
+    given (multivalue: auto on the windows' packed run).
     """
-    params = server_key.params
     content = np.ascontiguousarray(ct_content)
-    L = content.shape[0]
-    span, sof, eof = _long_plan(pattern, L)
-
-    def direct(ct):
-        return has_match(server_key, ct, pattern, backend=backend, fold=fold,
-                         engine=engine, branch_budget=branch_budget,
-                         device=device, multivalue=multivalue)
-
-    if span is None or L == 0:
-        return direct(content)
-    if sof and eof:
-        if L <= span:
-            return direct(content)
-        # the anchored pattern must span all L chars but can consume at
-        # most `span`: every branch is pruned, as in the direct circuit
-        dt = np.uint32 if params.torus_bits == 32 else np.uint64
-        return np.zeros((params.num_blocks, params.lwe_dimension + 1), dt)
-    if sof:
-        return direct(content[:min(L, span + 1)])
-    if eof:
-        return direct(content[L - min(L, max(span, 1)):])
-
-    W, starts = _window_plan(span, L, window)
-    if not starts:
-        return direct(content)
-    wins = np.stack([content[a:a + W] for a in starts])
-    bits = has_match_many(server_key, wins, pattern, backend=backend,
-                          fold=fold, engine=engine,
-                          branch_budget=branch_budget,
-                          wide_batch=wide_batch, multivalue=multivalue,
-                          device=device)
-    logger.info("long content: %d chars -> %d windows of %d (span %d)",
-                L, len(starts), W, span)
-    return _or_reduce_bits(server_key, backend, device, bits)
+    layout = _long_layout(pattern, content.shape[0], window)
+    if layout[0] == "false":
+        return _no_match(server_key.params, 1)[0]
+    if layout[0] == "direct":
+        return has_match(server_key, content[layout[1]:layout[2]], pattern,
+                         backend=backend, fold=fold, engine=engine,
+                         branch_budget=branch_budget, device=device,
+                         multivalue=multivalue)
+    return _long_windows(server_key, content[None], pattern, *layout[1:],
+                         backend, fold, engine, branch_budget, wide_batch,
+                         multivalue, device)[0]
 
 
 def has_match_many_long(server_key: ServerKey, ct_contents,
@@ -667,41 +665,19 @@ def has_match_many_long(server_key: ServerKey, ct_contents,
     trimmed) documents.  ``engine`` and ``multivalue`` as in
     ``has_match_many``.
     """
-    params = server_key.params
     contents = _contents4(ct_contents)
-    C, L = contents.shape[0], contents.shape[1]
-    span, sof, eof = _long_plan(pattern, L)
-
-    def batched(cts):
-        return has_match_many(server_key, cts, pattern, backend=backend,
-                              fold=fold, engine=engine,
-                              branch_budget=branch_budget,
+    layout = _long_layout(pattern, contents.shape[1], window)
+    if layout[0] == "false":
+        return _no_match(server_key.params, contents.shape[0])
+    if layout[0] == "direct":
+        return has_match_many(server_key, contents[:, layout[1]:layout[2]],
+                              pattern, backend=backend, fold=fold,
+                              engine=engine, branch_budget=branch_budget,
                               wide_batch=wide_batch, multivalue=multivalue,
                               device=device)
-
-    if span is None or L == 0:
-        return batched(contents)
-    if sof and eof:
-        if L <= span:
-            return batched(contents)
-        dt = np.uint32 if params.torus_bits == 32 else np.uint64
-        return np.zeros((C, params.num_blocks, params.lwe_dimension + 1), dt)
-    if sof:
-        return batched(contents[:, :min(L, span + 1)])
-    if eof:
-        return batched(contents[:, L - min(L, max(span, 1)):])
-
-    W, starts = _window_plan(span, L, window)
-    if not starts:
-        return batched(contents)
-    M = len(starts)
-    wins = np.stack([contents[c, a:a + W] for c in range(C) for a in starts])
-    bits = batched(wins)
-    logger.info("%d long contents: %d chars -> %d windows of %d each",
-                C, L, M, W)
-    return np.stack([
-        _or_reduce_bits(server_key, backend, device, bits[c * M:(c + 1) * M])
-        for c in range(C)])
+    return _long_windows(server_key, contents, pattern, *layout[1:],
+                         backend, fold, engine, branch_budget, wide_batch,
+                         multivalue, device)
 
 
 def count_matches(server_key: ServerKey, ct_content: np.ndarray,

@@ -61,8 +61,8 @@ import numpy as np
 import torch
 
 from fhe_regex_tpu_torch.crypto.golden import make_lut_poly
-from fhe_regex_tpu_torch.ops.luts import (LutKey, lut_fn, mv_support_positions,
-                                          mv_weights)
+from fhe_regex_tpu_torch.ops.luts import (LUT_OR2, LUT_OR3, LutKey, lut_fn,
+                                          mv_support_positions, mv_weights)
 from fhe_regex_tpu_torch.ops.mv import (make_mv_finish_core,
                                         make_mv_rotate_core, mv_lut_table)
 from fhe_regex_tpu_torch.ops.pbs import I64, make_pbs_core, wrap_i32
@@ -578,6 +578,61 @@ def _check_fingerprint(path, want: str) -> None:
                          f"another circuit or plan, or without a fingerprint")
 
 
+@dataclasses.dataclass
+class OrTree:
+    """The OR tree of M encrypted bits as rounds over a slab whose rows
+    0..M-1 hold the bits (``_or_tree``)."""
+    rounds: list        # [(rows needed, [level launch tuple])]
+    answer: int         # the slab row of the answer
+    slab_rows: int
+
+    @property
+    def rows(self) -> int:
+        """Bootstraps the tree needs (padding rows not counted)."""
+        return sum(needed for needed, _ in self.rounds)
+
+
+def _or_tree(M: int, upload) -> OrTree:
+    """Each round ORs consecutive triples of the current rows (OR3 of
+    x + 2y + 4z, LUT 1) and a trailing pair (OR2 of x + 2y, LUT 0), carries
+    a lone trailing row, and writes its outputs to fresh slab rows; the
+    next round's rows are the outputs, then the carried row.  A round's
+    launches are MAX_LEVEL_BATCH wide with a power-of-two tail of at least
+    ``default_min_bucket``; padding rows combine nothing and write row M,
+    the trash row.  ``upload`` puts a launch's arrays on the device (the
+    dtypes of a classic level: int64 slots, int32 coefficients, constants
+    and LUT indices)."""
+    cur, nxt, rounds = list(range(M)), M + 1, []
+    while len(cur) > 1:
+        groups = [cur[i:i + 3] for i in range(0, len(cur), 3)]
+        work = [g for g in groups if len(g) > 1]
+        carry = [g[0] for g in groups if len(g) == 1]
+        B = len(work)
+        sizes = [MAX_LEVEL_BATCH] * (B // MAX_LEVEL_BATCH)
+        if B % MAX_LEVEL_BATCH:
+            sizes.append(_bucket(B % MAX_LEVEL_BATCH, default_min_bucket()))
+        slots = np.zeros((sum(sizes), 3), np.int32)
+        coefs = np.zeros((sum(sizes), 3), np.int32)
+        lut = np.zeros(sum(sizes), np.int32)
+        out = np.full(sum(sizes), M, np.int32)
+        for j, g in enumerate(work):
+            slots[j, :len(g)] = g
+            coefs[j, :len(g)] = (1, 2, 4)[:len(g)]
+            lut[j] = len(g) - 2
+            out[j] = nxt + j
+        launches, c0 = [], 0
+        for w in sizes:
+            sl = slice(c0, c0 + w)
+            c0 += w
+            launches.append((upload(slots[sl], I64), upload(coefs[sl]),
+                             upload(np.zeros(w, np.int32)), upload(lut[sl]),
+                             upload(out[sl], I64)))
+        rounds.append((B, launches))
+        cur = list(range(nxt, nxt + B)) + carry
+        nxt += B
+    return OrTree(rounds, cur[0], nxt)
+
+
 class Executor:
     """Runs compiled circuits against one server key's device material.
 
@@ -609,6 +664,9 @@ class Executor:
         # over every run; device_s only of timed steps (``_Steps``)
         self._by_width: Dict[str, dict] = {}
         self._by_width_lock = threading.Lock()
+        # {M: OrTree} of or_reduce, on this executor's device
+        self._or_trees: Dict[int, OrTree] = {}
+        self._or_lock = threading.Lock()
         wide = params.torus_bits == 64
         self._dtype = I64 if wide else torch.int32
         self._np_u = np.uint64 if wide else U32       # the bits at the API
@@ -905,11 +963,17 @@ class Executor:
                  wide_batch: "bool | None" = None,
                  checkpoint: "str | None" = None,
                  checkpoint_every: int = 0,
-                 resume: "str | None" = None) -> np.ndarray:
+                 resume: "str | None" = None,
+                 roots_on_device: bool = False
+                 ) -> "np.ndarray | torch.Tensor":
         """Match ONE compiled circuit against MANY encrypted contents.
 
         contents: [C, len, num_blocks, n+1] uint32 (uint64 at 64 bits) ->
-        [C, num_blocks, n+1] ([C, R, num_blocks, n+1] for R roots).  Every
+        [C, num_blocks, n+1] ([C, R, num_blocks, n+1] for R roots); with
+        ``roots_on_device`` the results' block-0 rows stay on the device
+        as this executor's slab words, [C, n+1] ([C, R, n+1]), nothing is
+        downloaded, and the call waits for the device before it returns
+        (``or_reduce`` takes such rows).  Every
         level's bootstrap batch spans all C contents (``_device_chunks_many``;
         ``_device_chunks_many_mv`` for a multi-value circuit, whose
         rotations of a step all read the slab before its finish writes).
@@ -932,11 +996,13 @@ class Executor:
         self._check_plan(circuit)
         with trace.Span("executor.run_many") as run_span:
             out = self._run_many(circuit, contents, wide_batch, checkpoint,
-                                 checkpoint_every, resume, run_span.start_ns)
+                                 checkpoint_every, resume, roots_on_device,
+                                 run_span.start_ns)
         return out
 
     def _run_many(self, circuit, contents, wide_batch, checkpoint,
-                  checkpoint_every, resume, t_run0: int) -> np.ndarray:
+                  checkpoint_every, resume, roots_on_device: bool,
+                  t_run0: int) -> "np.ndarray | torch.Tensor":
         if wide_batch is None:
             env = os.environ.get("FHE_REGEX_WIDE_BATCH")
             wide_batch = (env == "1" if env is not None
@@ -999,29 +1065,80 @@ class Executor:
                 _ckpt.save_many_slab(checkpoint, slab.cpu().numpy(), si + 1,
                                      C, len(steps), fingerprint=fp)
         with trace.Span("executor.finalize"):
-            roots = circuit.all_roots
-            slots = [r.val.slot for r in roots if r.val.sign != 0]
-            if slots:
-                ridx = (np.arange(C)[:, None] * S
-                        + np.asarray(slots)[None, :]).reshape(-1)
-                got = slab[self._upload(ridx, I64)].cpu().numpy().reshape(
-                    C, len(slots), n1)
-            out = np.zeros((C, len(roots), params.num_blocks, n1),
-                           self._np_u)
-            for ci in range(C):
-                ri = 0
-                for pi, r in enumerate(roots):
-                    ct_u = None
-                    if r.val.sign != 0:
-                        ct_u = got[ci, ri].view(self._np_u)
-                        ri += 1
-                    out[ci, pi] = _assemble_root(params, r.val, ct_u)
+            out = self._root_rows(circuit, slab, C)
+            if not roots_on_device:
+                rows = out.cpu().numpy().view(self._np_u)
+                out = np.zeros((C, rows.shape[1], params.num_blocks, n1),
+                               self._np_u)
+                out[:, :, 0] = rows
+            elif self.device.type == "cuda":
+                # as a download would, so the time below is the run's
+                torch.cuda.current_stream(self.device).synchronize()
         timer.close()
         # the root download above waited for the device, so the time is
         # the run's own (the JAX package's run_many feeds no watchdog)
         self.watchdog.observe(("many", C, circuit.pbs_count, S, mv,
                                wide_batch), (time.time_ns() - t_run0) / 1e9)
         return out[:, 0] if circuit.roots is None else out
+
+    def _root_rows(self, circuit: CompiledCircuit, slab,
+                   C: int) -> torch.Tensor:
+        """Block 0 of every content's root ciphertexts on the device, [C,
+        R, n+1] slab words, from one gather of the root rows: the rows
+        ``_assemble_root`` makes (the root's sign and constant applied; a
+        constant root's row trivial).  The other blocks are zero."""
+        S, vals = circuit.num_slots, [r.val for r in circuit.all_roots]
+        ridx = (np.arange(C)[:, None] * S
+                + np.asarray([v.slot if v.sign else 0 for v in vals])[None])
+        sign = self._upload(np.asarray([v.sign for v in vals]), I64)
+        rows = slab[self._upload(ridx, I64)].to(I64) * sign[:, None]
+        rows[..., -1] += self._upload(
+            np.asarray([v.const * self.params.delta for v in vals]), I64)
+        return rows if self.params.torus_bits == 64 else wrap_i32(rows)
+
+    @functools.cached_property
+    def _or_luts(self) -> torch.Tensor:
+        """The OR2 and OR3 test polynomials on the device, LUTs 0 and 1 of
+        ``or_reduce``'s launches."""
+        luts = np.stack([make_lut_poly(self.params, lut_fn(LUT_OR2)),
+                         make_lut_poly(self.params, lut_fn(LUT_OR3))])
+        return self._upload(luts.view(self._np_s), self._dtype)
+
+    def or_tree(self, M: int) -> OrTree:
+        """The OR tree of M bits on this executor's device, made at its
+        first use and kept per M (``_or_tree``)."""
+        with self._or_lock:
+            tree = self._or_trees.get(M)
+            if tree is None:
+                tree = self._or_trees[M] = _or_tree(M, self._upload)
+            return tree
+
+    def or_reduce(self, bits: torch.Tensor) -> np.ndarray:
+        """Homomorphic OR of M encrypted bits -> one radix ciphertext
+        [num_blocks, n+1] (uint32 / uint64), the bit in block 0.
+
+        ``bits`` [M, n+1]: block-0 rows on this executor's device, as
+        ``run_many(roots_on_device=True)`` hands them over.  The rounds of
+        ``or_tree(M)`` run over a slab on the device, each an
+        ``executor.level`` step under the key "or"; the answer row is the
+        one download."""
+        M = bits.shape[0]
+        tree = self.or_tree(M)
+        n1 = self.params.lwe_dimension + 1
+        slab = torch.zeros((tree.slab_rows, n1), dtype=self._dtype,
+                           device=self.device)
+        slab[:M] = bits
+        timer = _Steps(self, trace.recording())
+        for needed, launches in tree.rounds:
+            with timer.step("or", sum(lv[0].shape[0] for lv in launches),
+                            needed):
+                for lv in launches:
+                    self._run_level(slab, self._or_luts, *lv)
+        row = slab[tree.answer].cpu().numpy()
+        timer.close()
+        out = np.zeros((self.params.num_blocks, n1), self._np_u)
+        out[0] = row.view(self._np_u)
+        return out
 
     def run(self, circuit: CompiledCircuit,
             content_blocks: "np.ndarray | None",

@@ -27,7 +27,9 @@ buffer + shape/dtype), the same as the JAX package's:
   POST /match_many        same with ct shape [C, len, blocks, n+1]
                           -> {"ct": {...}} with leading C axis
   POST /match_long        {"pattern", "ct", "window"?} — long contents via
-                          overlapping windows (has_match_long)
+                          overlapping windows (has_match_long's answer; the
+                          window circuit is a cached program, the OR of
+                          the windows' bits runs on the device)
   POST /count             {"pattern", "ct"} — encrypted match count as
                           base-4 digit rows (decrypt with decrypt_count)
 
@@ -41,7 +43,8 @@ entry to reply written) over ``serve.read`` (the body off the socket),
 ``serve.decode`` (JSON and base64), ``serve.service`` (the
 ``MatchService`` call: ``service.lookup``, the program and its circuit,
 compiled on a miss; ``service.wait`` for the device lock; the executor's
-``executor.*`` spans), ``serve.encode`` (base64 and JSON) and
+``executor.*`` spans; on /match_long ``long.or_reduce``, from the first OR
+launch to the answer on the host), ``serve.encode`` (base64 and JSON) and
 ``serve.write`` (headers and body to the socket).  Their seconds are
 counters of /stats whether or not the recorder records:
 
@@ -52,7 +55,14 @@ counters of /stats whether or not the recorder records:
   wait_s              seconds requests waited for the device lock
   launches_by_width   the executor's steps by the widths of their rotation
                       launches: steps, rows_launched, rows_needed, device_s
-                      (``Executor.launches_by_width``)
+                      (``Executor.launches_by_width``; the OR rounds of
+                      /match_long under "or")
+  long[pattern]       the windowed /match_long requests: requests, chars,
+                      windows, window_rows and window_levels (the window
+                      plan's rotation rows times the windows, and its
+                      levels once a request: the windows run side by
+                      side), or_rounds, or_rows (the OR tree's
+                      bootstraps) and or_s (the ``long.or_reduce`` span)
 
 All but write_s and seconds are counted before the reply is written.
 
@@ -125,6 +135,7 @@ class MatchService:
         self._stats_lock = threading.Lock()
         self._requests: dict = {}
         self._counters = {"lookup_s": 0.0, "plan_misses": 0, "wait_s": 0.0}
+        self._long: dict = {}
         self._last_profile: Optional[dict] = None
         self.recorder = trace.Recorder()
 
@@ -169,7 +180,8 @@ class MatchService:
         circuit stats per content length (bootstraps / blind-rotation counts
         / levels), the watchdog's EMA seconds per launch shape, and the
         per-level timings of the last profiled match; beyond the JAX
-        daemon's, the launches of each CUDA kernel wrapper in this process
+        daemon's, the counters of the spans (module docstring), the
+        launches of each CUDA kernel wrapper in this process
         (``ops.pbs_cuda.launch_counts``: zero on the CPU path), and the CMUX
         steps x rows of the 32-bit fused rotations by path
         (``ops.pbs_cuda.rotation_steps``: spectral or limb)."""
@@ -193,6 +205,7 @@ class MatchService:
                 **self._counters,
                 "launches_by_width": self.executor.launches_by_width(),
                 "programs": programs,
+                "long": {k: dict(v) for k, v in self._long.items()},
                 # per-launch-shape EMA seconds of Executor.run ("levels",
                 # or "fused" for a level loop run as one CUDA graph) and
                 # run_many ("many"); anomalies are logged as warnings
@@ -240,12 +253,15 @@ class MatchService:
 
         manifest: list of entries {"pattern": str | "patterns": [str],
         "content_len": int, "fold"?, "branch_budget"?, "multivalue"?,
-        "positions"?, "many"?: int}.  For each entry the program is
-        compiled AND one trivial-ciphertext match is executed: the first
-        run of a circuit uploads its level plans to the device (and the
-        first run in the process loads the kernels), which a client's first
-        request would otherwise pay.  "many": C also runs the packed
-        run_many plan at batch C.  Returns per-entry timings."""
+        "positions"?, "many"?: int, "long"?: bool, "window"?: int}.  For
+        each entry the program is compiled AND one trivial-ciphertext match
+        is executed: the first run of a circuit uploads its level plans to
+        the device (and the first run in the process loads the kernels),
+        which a client's first request would otherwise pay.  "many": C also
+        runs the packed run_many plan at batch C.  "long": true runs
+        /match_long's path instead of /match: the window circuit, its
+        packed plan at the batch of one content's windows and the OR tree
+        of that many bits.  Returns per-entry timings."""
         from fhe_regex_tpu_torch import trivial_encrypt_str
 
         report = []
@@ -259,9 +275,15 @@ class MatchService:
             mv = None if mv is None else bool(mv)
             pos = bool(entry.get("positions", False))
             ct = trivial_encrypt_str(self.params, "a" * L)
-            self.match(pat, ct, fold, budget, mv, pos)
+            if entry.get("long"):
+                self.match_long(pat, ct, entry.get("window"), fold, budget,
+                                mv)
+            else:
+                self.match(pat, ct, fold, budget, mv, pos)
             row = {"pattern": pat, "content_len": L, "seconds":
                    round(time.time() - t0, 2)}
+            if entry.get("long"):
+                row["long"] = True
             C = int(entry.get("many", 0))
             if C > 0:
                 t1 = time.time()
@@ -317,19 +339,47 @@ class MatchService:
     def match_long(self, pattern: str, ct: np.ndarray, window=None,
                    fold: str = "tree", branch_budget=None,
                    multivalue=None) -> np.ndarray:
-        """Windowed long-content match (has_match_long) through the same
-        executor; the window circuit is compiled per call."""
-        from fhe_regex_tpu_torch import has_match_long
+        """Windowed long-content match: ``has_match_long``'s answer, bit for
+        bit.  The window circuit is the pattern's program at the window's
+        length (``service.lookup``: compiled once, its plans uploaded at
+        its first run); the windows run packed and their bits OR-reduce on
+        the device (``_match_windows``), and the request adds to /stats
+        ``long``.  A content the windows cannot help takes the program of
+        the direct circuit, as ``match``."""
+        from fhe_regex_tpu_torch import (_long_layout, _match_windows,
+                                         _no_match, _resolve_multivalue)
 
         if isinstance(pattern, (list, tuple)):
             raise ValueError("/match_long takes a single \"pattern\" "
                              "(pattern sets are not windowed)")
+        ct = np.ascontiguousarray(ct)
+        layout = _long_layout(pattern, ct.shape[0], window)
+        if layout[0] == "false":
+            return _no_match(self.params, 1)[0]
+        if layout[0] == "direct":
+            return self.match(pattern, ct[layout[1]:layout[2]], fold,
+                              branch_budget, _resolve_multivalue(multivalue))
+        _, W, starts = layout
+        circuit = self._circuit(pattern, fold, branch_budget,
+                                _resolve_multivalue(multivalue, packed=True),
+                                False, W)
         with self._device():
-            return has_match_long(self.server_key, ct, pattern,
-                                  window=window, fold=fold,
-                                  branch_budget=branch_budget,
-                                  backend=self.backend,
-                                  multivalue=multivalue, device=self.device)
+            out, or_s = _match_windows(self.executor, circuit, ct[None], W,
+                                       starts)
+        tree = self.executor.or_tree(len(starts))
+        with self._stats_lock:
+            row = self._long.setdefault(pattern, dict.fromkeys(
+                ("requests", "chars", "windows", "window_rows",
+                 "window_levels", "or_rounds", "or_rows", "or_s"), 0))
+            row["requests"] += 1
+            row["chars"] += int(ct.shape[0])
+            row["windows"] += len(starts)
+            row["window_rows"] += circuit.rotation_count * len(starts)
+            row["window_levels"] += len(circuit.levels)
+            row["or_rounds"] += len(tree.rounds)
+            row["or_rows"] += tree.rows
+            row["or_s"] += or_s
+        return out[0]
 
 
 # the POST endpoints whose request carries a ciphertext array "ct"

@@ -47,6 +47,21 @@ from fhe_regex_tpu_torch.ops import pbs_cuda
 torch.set_num_threads(2)
 
 
+@pytest.fixture(autouse=True)
+def _keep_launch_counts():
+    """The tests that stand in for the card count launches and rotation
+    steps; give the process-wide counts back, so that a later test in the
+    same process (``/stats`` ``kernel_launches``) sees only its own."""
+    counts = {k: k.launches for k in pbs_cuda.KERNELS}
+    rotations = dict(pbs_cuda._ROTATION_LAUNCHES)
+    steps = dict(pbs_cuda._ROTATION_STEPS)
+    yield
+    for k, n in counts.items():
+        k.launches = n
+    pbs_cuda._ROTATION_LAUNCHES.update(rotations)
+    pbs_cuda._ROTATION_STEPS.update(steps)
+
+
 def _t(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a).view(np.int32))
 

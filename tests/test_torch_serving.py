@@ -145,6 +145,13 @@ def test_has_match_patterns_and_positions_equal_jax(both):
     ("abcxxxxxxx", "/^abc/", None, 1),    # ^: the first span+1 chars
     ("xxxxxxxabc", "/abc$/", None, 1),    # $: the last span chars
     ("abcxxxxxxx", "/^abc$/", None, 0),   # both: trivial FALSE
+    # OR trees of more than one round: 4 windows (OR3 and a carried row,
+    # then OR2), 5 (OR3 and OR2, then OR2) and 19 (19 -> 7 -> 3 -> 1)
+    ("xxxxxxxxxxxxabc", "/abc/", 6, 1),   # the hit in the carried row
+    ("xxxxxxxxxxxxxxx", "/abc/", 6, 0),
+    ("xxxxxxxxxxxabcxxxx", "/abc/", 6, 1),  # the hit in the OR2 pair
+    ("x" * 57 + "abc", "/abc/", 6, 1),
+    ("x" * 29 + "abc" + "x" * 28, "/abc/", 6, 1),
 ])
 def test_has_match_long_equals_jax(both, content, pattern, window, exp):
     (ck, sk), (tck, tsk) = both
@@ -162,6 +169,20 @@ def test_has_match_many_long_equals_jax(both):
     got = port.has_match_many_long(tsk, cts, "/abc/", window=6, device="cpu")
     assert np.array_equal(got, want)
     assert [port.decrypt(tck, r) for r in got] == [1, 0, 1]
+
+
+@pytest.mark.parametrize("L", [15, 60])
+def test_has_match_many_long_tree_equals_jax(both, L):
+    """Contents of 4 and 19 windows, whose OR trees take two and three
+    rounds with a carried row, each hit in a different window."""
+    (ck, sk), (tck, tsk) = both
+    strings = ["x" * (L - 3) + "abc", "x" * L, "abc" + "x" * (L - 3),
+               "x" * (L // 2) + "abc" + "x" * (L - L // 2 - 3)]
+    cts = _enc(ck, strings)
+    want = J.has_match_many_long(sk, cts, "/abc/", window=6, **JAX_KW)
+    got = port.has_match_many_long(tsk, cts, "/abc/", window=6, device="cpu")
+    assert np.array_equal(got, want)
+    assert [port.decrypt(tck, r) for r in got] == [1, 0, 1, 1]
 
 
 def test_count_matches_equals_jax(both):
