@@ -167,11 +167,14 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    line.
 18. the spectral rotation (``spectral::ext_product`` of
    ``csrc/blind_rotate.cu``, which ``cuda-fused`` and ``cuda-bg`` run on
-   the key spectrum ``prepare_server_key`` makes, its seconds printed): bit-equal to the plain rotation, the
-   ``cuda`` backend, the limb GEMM and the wrapper at B = 8, 16, 64, 256
-   and 1024; both paths timed at B = 8 ... 1024 beside the limb and FFT
-   bounds of ``portbench/roofline.py`` (the crossover sweep); a JSON line
-   ``{"spectral": ...}``.
+   the key spectrum of ``pbs_fft.SPECTRAL_PLAN`` that
+   ``prepare_server_key`` makes, its seconds and bytes printed):
+   bit-equal to the plain rotation, the ``cuda`` backend, the limb GEMM
+   and the wrapper at B = 8, 16, 64, 256 and 1024; both paths timed at B
+   = 8 ... 1024 beside the limb and FFT bounds of ``portbench/roofline.py``
+   and the FFT bound of the kernel's plan (the crossover sweep); the
+   clock64 phase split of a step at T = 1 and 2 from a build with
+   -DFHE_SPECTRAL_CLOCKS; a JSON line ``{"spectral": ...}``.
 
 Before each main path every launch count is set to 0; just after, the
 path's kernel must show launches (on the ``fft`` path: none).  Any failure
@@ -399,20 +402,21 @@ def rotation_bound(params, B: int, L: int, drop=(0, 0)):
     return _bound(2 * macs * limb_pairs(params, drop), nbytes)
 
 
-def fft_rotation_bound(params, B: int, L: int):
-    """Bound of one FFT blind rotation (``fft``) of B instances with L LUTs
-    on the limb plan ``PLAN`` (Lp limbs), in float64: per step (k+1)l B
-    forward and (k+1) Lp B inverse complex FFTs of length M = N/2 (5 M
-    log2 M flops each) at the FP64 rate outside the tensor cores, and the
-    contraction, (k+1)l (k+1) Lp M B complex multiply-adds (8 flops each,
-    a batched ZGEMM), at the FP64 tensor-core rate, n steps; or the
-    spectral key (complex128), the inputs and the output each moved once,
-    whichever takes longer."""
+def fft_rotation_bound(params, B: int, L: int, plan: tuple = None):
+    """Bound of one FFT blind rotation of B instances with L LUTs on the
+    limb plan ``plan`` (Lp limbs; default ``pbs_fft.PLAN``, the ``fft``
+    backend's; the spectral rotation's is ``pbs_fft.SPECTRAL_PLAN``), in
+    float64: per step (k+1)l B forward and (k+1) Lp B inverse complex FFTs
+    of length M = N/2 (5 M log2 M flops each) at the FP64 rate outside the
+    tensor cores, and the contraction, (k+1)l (k+1) Lp M B complex
+    multiply-adds (8 flops each, a batched ZGEMM), at the FP64 tensor-core
+    rate, n steps; or the spectral key (complex128), the inputs and the
+    output each moved once, whichever takes longer."""
     from fhe_regex_tpu_torch.ops.pbs_fft import PLAN
 
     k1, N = params.glwe_dimension + 1, params.polynomial_size
     n, rows, M = params.lwe_dimension, k1 * params.pbs_level, N // 2
-    Lp = len(PLAN)
+    Lp = len(plan or PLAN)
     t_fft = n * (rows + k1 * Lp) * B * 5 * M * math.log2(M) / FP64_FLOPS_PER_S
     t_mm = n * 8 * rows * k1 * Lp * M * B / FP64_TC_FLOPS_PER_S
     nbytes = (n * rows * k1 * Lp * M * 16 + B * (n + 2) * 4 + L * N * 4
@@ -1319,9 +1323,12 @@ def spectral_phase(pbs_cuda, params, ck, sk, blind_rotate):
     each B of ``SPECTRAL_SWEEP``, device ms
     a rotation of both paths (3 warm calls each between CUDA events),
     bit-equal, beside the limb and float64 FFT bounds of
-    ``portbench/roofline.py``: the crossover sweep.  Returns the numbers of
-    the ``{"spectral": ...}`` line."""
+    ``portbench/roofline.py`` (whose FFT plan is (16, 8, 8)) and the FFT
+    bound of the kernel's own plan, ``SPECTRAL_PLAN``: the crossover sweep;
+    then the phase split of a step at T = 1 and 2 (``spectral_clocks``).
+    Returns the numbers of the ``{"spectral": ...}`` line."""
     from fhe_regex_tpu_torch.ops.pbs import prepare_server_key
+    from fhe_regex_tpu_torch.ops.pbs_fft import SPECTRAL_PLAN
     from portbench.roofline import fft_rotation_bound as fft_bound
     from portbench.roofline import rotation_bound as limb_bound
 
@@ -1373,12 +1380,89 @@ def spectral_phase(pbs_cuda, params, ck, sk, blind_rotate):
         L = x["luts"].shape[0]
         row["limb_bound_ms"], _ = limb_bound(params, B, L)
         row["fft_bound_ms"], _ = fft_bound(params, B, L)
+        row["plan_bound_ms"], _ = fft_rotation_bound(params, B, L,
+                                                     SPECTRAL_PLAN)
         out["widths"].append(row)
         print(f"spectral rotation {params.name} B={B}: equal to "
               f"{row.get('equal', ['limb'])}; device ms {_fmt(row['spectral_ms'])}"
               f" (limb GEMM {_fmt(row['limb_ms'])}); bounds: limb "
               f"{row['limb_bound_ms']:.3f}, fft {row['fft_bound_ms']:.3f} "
-              f"ms", flush=True)
+              f"(16, 8, 8), {row['plan_bound_ms']:.3f} {SPECTRAL_PLAN} ms",
+              flush=True)
+    out["phase_clocks"] = spectral_clocks(pbs_cuda, params, ck, dk)
+    return out
+
+
+SPECTRAL_PHASES = ("digits and pass 1", "forward passes 2 and 3",
+                   "contraction", "inverse")
+
+
+def spectral_clocks(pbs_cuda, params, ck, dk):
+    """The phase split of the spectral rotation's step: ``csrc/
+    blind_rotate.cu`` built again with -DFHE_SPECTRAL_CLOCKS (into
+    ``build/`` beside the library), one rotation at B = 8 (T = 1 instance a
+    block) and one at B = 1024 (T = 2) on the key's spectrum, each equal to
+    the library's; block 0's clock64() ticks a step by phase
+    (``SPECTRAL_PHASES``).  Returns {"T=1": {phase: ticks}, "T=2": ...}."""
+    import ctypes
+
+    lib_path = pbs_cuda.build()
+    so = lib_path.with_name(f"{lib_path.stem}-clocks.so")
+    if not so.exists():
+        res = subprocess.run(
+            [pbs_cuda._nvcc(), *pbs_cuda.NVCC_FLAGS, "-DFHE_SPECTRAL_CLOCKS",
+             "-shared", "-o", str(so), str(pbs_cuda.CSRC / "blind_rotate.cu")],
+            capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc -DFHE_SPECTRAL_CLOCKS failed:\n"
+                               f"{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    rotate = lib.fhe_blind_rotate_spectral
+    rotate.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    rotate.restype = ctypes.c_int
+    lib.fhe_spectral_phase_clocks.argtypes = [ctypes.c_void_p]
+    lib.fhe_spectral_phase_clocks.restype = ctypes.c_int
+    k1, N, n = (params.glwe_dimension + 1, params.polynomial_size,
+                params.lwe_dimension)
+    tables = pbs_cuda._spectral_tables(N, torch.device(DEVICE))
+    out = {}
+    for B, T in ((8, 1), (1024, 2)):
+        x = _rotation_inputs(params, ck, B, seed=1900 + B)
+        acc = torch.empty((B, k1, N), dtype=torch.int32, device=DEVICE)
+        ticks = (ctypes.c_ulonglong * (2 * len(SPECTRAL_PHASES)))()
+
+        def call():
+            err = rotate(x["ms"].data_ptr(), x["luts"].data_ptr(),
+                         x["lut_idx"].data_ptr(), dk.spec.data_ptr(),
+                         tables.data_ptr(), acc.data_ptr(), B, n, k1, N,
+                         params.pbs_level, params.pbs_base_log,
+                         torch.cuda.current_stream().cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"clocked spectral rotation: {err}")
+
+        call()                                   # warm, then clocks to 0
+        if lib.fhe_spectral_phase_clocks(ticks) != 0:
+            raise RuntimeError("fhe_spectral_phase_clocks failed")
+        call()
+        torch.cuda.synchronize()
+        if lib.fhe_spectral_phase_clocks(ticks) != 0:
+            raise RuntimeError("fhe_spectral_phase_clocks failed")
+        want = pbs_cuda._rotate_spectral(params, dk.spec, x["luts"],
+                                         x["lut_idx"], x["ms"])
+        if not torch.equal(acc, want):
+            raise AssertionError(f"clocked spectral rotation B={B} != the "
+                                 f"library's")
+        per = [ticks[len(SPECTRAL_PHASES) * (T - 1) + p] / n
+               for p in range(len(SPECTRAL_PHASES))]
+        if min(per) <= 0:
+            raise AssertionError(f"phase clocks T={T}: {per}")
+        total = sum(per)
+        out[f"T={T}"] = dict(zip(SPECTRAL_PHASES, per))
+        print(f"spectral step T={T} (B={B}): {total:.0f} clocks; "
+              + ", ".join(f"{name} {t:.0f} ({100 * t / total:.1f} %)"
+                          for name, t in zip(SPECTRAL_PHASES, per)),
+              flush=True)
     return out
 
 
@@ -2174,6 +2258,7 @@ def main() -> int:
     from fhe_regex_tpu_torch.ops import pbs_cuda
     from fhe_regex_tpu_torch.ops.pbs import blind_rotate, prepare_server_key
     from fhe_regex_tpu_torch.ops.pbs64 import blind_rotate64, stage1_digits64
+    from fhe_regex_tpu_torch.ops.pbs_fft import SPECTRAL_PLAN
     from fhe_regex_tpu_torch.params import get_params
 
     smi = subprocess.run(
@@ -2430,7 +2515,7 @@ def main() -> int:
         entry("spectral rotation (cuda-fused, cuda-bg)", "blind_rotate.cu",
               "358,713", spectral_launches, spectral["max_abs_err"],
               float(np.median(spec256["spectral_ms"])), times[B][1] * 1e3,
-              fft_rotation_bound(full, B, L)),
+              fft_rotation_bound(full, B, L, SPECTRAL_PLAN)),
         entry("blind_rotate_fused64", "blind_rotate64.cu", 1196, main64,
               max(errs64), times64[B][0] * 1e3, times64[B][1] * 1e3,
               rotation_bound(full64, B, L)),

@@ -417,47 +417,63 @@ int rotate32(const int32_t* cts_ms, const int32_t* luts,
 //
 // Replaces, on those two backends, the step above (`stage1`, then the int8
 // limb GEMM `ext_product`) by the float64 FFT formulation of
-// ops/pbs_fft.py, whose key spectrum (limb plan PLAN = (16, 8, 8),
-// complex128, [n, (k+1)l, k+1, 3, N/2]) prepare_server_key makes on the
-// card.  One block runs the whole rotation of T instances: their
-// accumulators and every step's spectra stay in its shared memory, and no
-// block waits on another, so the n steps need no launch between them (the
-// two launches a step of the limb path would move each step's spectra,
-// 96 KB an instance, through L2 and back).  Each step, for each instance:
+// ops/pbs_fft.py, on a key spectrum of its own limb plan (SPECTRAL_PLAN =
+// (16, 16), complex128, [n, (k+1)l, k+1, 2, N/2], 341 MB at the production
+// set; the `fft` backend keeps PLAN = (16, 8, 8)) that prepare_server_key
+// makes on the card.  One block runs the whole rotation of T instances:
+// their accumulators and every step's spectra stay in its shared memory,
+// and no block waits on another, so the n steps need no launch between
+// them (the two launches a step of the limb path would move each step's
+// spectra, 96 KB an instance, through L2 and back).  Each step, for each
+// instance:
 //  1. the digit pass of `stage1` (X^{a_i} acc - acc, rounded, l balanced
 //     digits), once a coefficient, into the head of each row's slot as
 //     int8; each of the (k+1)l digit rows folded to M = N/2 complex points
 //     u_j = (d_j + i d_{j+M}) t_j, t_j = e^{i pi j/N}, and transformed: a
 //     Stockham FFT (natural order in and out) of radix 16, 16, 4, 64
 //     threads a transform, 16 points a thread in registers;
-//  2. the contraction: each frequency of the (k+1) x 3 outputs (component,
+//  2. the contraction: each frequency of the (k+1) x 2 outputs (component,
 //     key limb) is the sum over the rows of digit spectrum x key spectrum,
-//     written over the digit spectra; one thread a frequency for all T
-//     instances, so each key value read serves T of them;
+//     written over the first 4 digit spectra; one thread a frequency for
+//     all T instances, so each key value read serves T of them;
 //  3. the inverse transforms, 1/M and the untwist; each limb rounded to its
-//     integer and added, times 2^weight, into the accumulator mod 2^32
-//     (shared atomics: exact in any order).
-// Exactness: a limb's value is an integer below 64 * 2^15 * N * (k+1)l ~=
-// 2^34.6 (digits |d| <= 64, the 16-bit limb |k| <= 2^15), far inside the
-// 53-bit mantissa; on the worst input (every digit -64, every limb at its
-// extreme) the CPU tests find no limb further than 3.1e-5 from its integer,
-// so rounding gives the integer and the step is the exact external
-// product, bit for bit.  The CPU tests hold a twin of this arithmetic, its
-// passes, swz and at16 included (tests/test_torch_kernels32.py,
-// _spectral_step), to the exact one.
+//     integer, the two joined as limb 0 + 2^16 limb 1 and added into the
+//     accumulator mod 2^32.
+// Exactness: each limb's value is an integer below 64 * 2^15 * N * (k+1)l
+// ~= 2^34.6 (digits |d| <= 64, both 16-bit limbs |k| <= 2^15: the high
+// limb at weight 2^16 has the bound of the low one), far inside the 53-bit
+// mantissa; on the worst input (every digit -64 or 64, every key word
+// 0x7FFF8000, both limbs -2^15) the CPU tests find no limb further than
+// 1.53e-5 from its integer, so rounding gives the integer and the step is
+// the exact external product, bit for bit.  The CPU tests hold a twin of
+// this arithmetic, its passes, swz and at16 included
+// (tests/test_torch_kernels32.py, _spectral_step), to the exact one.
 //
-// What bounds it.  Per instance and step, 12 length-1024 transforms and
-// 36 x 1024 complex multiply-adds, ~0.8 MFLOP of float64: 5.0 ms a
-// rotation at B = 256 at 34 TFLOP/s outside the tensor cores.  Every block
-// reads the step's key spectrum, 590 KB, from L2 (from device memory once
-// a step), at about 62 bytes a clock an SM.  What the design does:
+// What bounds it.  Per instance and step, 6 forward and 4 inverse
+// length-1024 transforms and 24 x 1024 complex multiply-adds, ~0.7 MFLOP
+// of float64: 4.0 ms a rotation at B = 256 at 34 TFLOP/s outside the
+// tensor cores (and 67 on them for the contraction).  Every block reads
+// the step's key spectrum, 393 KB, from L2 (from device memory once a
+// step).  What the design does:
 //  * T = 2 instances a block above one wave of the card (B > 132) halve
 //    the key traffic an instance; T = 1 below, so a narrow batch spreads
 //    over B SMs.  Shared memory is T x (6 x 16 KB of spectra + 16 KB of
 //    accumulator), 229,376 bytes at T = 2 of the 232,448 a block may have:
-//    one block an SM, 12 warps, 168 registers a thread.  The key goes
-//    around L1 (ld.global.cg), so the twist and twiddle tables (32 KB)
+//    one block an SM, 12 warps, 168 registers a thread, no spills.  The key
+//    goes around L1 (ld.global.cg), so the twist and twiddle tables (32 KB)
 //    keep what is left of it.
+//  * Forward: 6 T transforms on 6 groups of 64 threads, T rounds.  Inverse:
+//    4 T transforms on the same 6 groups, so rounds would leave groups
+//    idle (T = 1: 2 of 6; T = 2: 4 of 6 in a second round).  Its passes 1
+//    and 2 run a transform a group on the group's own named barrier, and a
+//    group past its last transform goes on to the block barrier; pass 3
+//    runs over the whole block, a thread an (instance, component,
+//    butterfly) with both limbs, so each accumulator word has one writer
+//    and needs no atomic.  (Measured against it: rounds on block barriers
+//    with atomics spill and take 20.9 / 134 ms at B = 8 / 1024; the forward
+//    on group barriers, the idle groups of a T = 2 second round taking the
+//    pass 3 of the pairs already done, and a digit pass unrolled by 4 each
+//    moved no width beyond 2 %.)
 //  * Shared accesses are conflict-free: every point is read and written at
 //    swz(k) = k ^ ((k >> 4) & 7), which puts each 8 lanes of a quarter-warp
 //    on 8 distinct 16-byte slots in every access pattern of the passes.
@@ -465,22 +481,39 @@ int rotate32(const int32_t* cts_ms, const int32_t* luts,
 //    taken by multiplication: shared memory and L1 share one path, and
 //    15 loads a point set of pass 2 held it (measured: pass 2 at half the
 //    time without them).
-// Measured (H100 SXM, 700 W): a rotation at B = 8 / 256 / 1024 takes 12.4 /
-// 22.0 / 89 ms against the limb GEMM's 17.2 / 138.6 / 522; by phase, at
-// T = 2, a step's 52k clocks are digits and pass 1 22 %, forward passes 2
-// and 3 18 %, contraction 29 %, inverse 31 %.
+// Measured (H100 SXM, 700 W): a rotation at B = 8 / 256 / 1024 takes 10.1 /
+// 17.6 / 70 ms (on the three-limb plan (16, 8, 8) 12.7 / 22.6 / 90, the
+// limb GEMM's 17.4 / 139 / 529).  By phase (clock64 of block 0, a build
+// with FHE_SPECTRAL_CLOCKS), a step at T = 1 takes 23.1k clocks: digits
+// and pass 1 28 %, forward passes 2 and 3 19 %, contraction 29 %, inverse
+// 24 % (three limbs: 28.8k; 22, 15, 32, 31 %); at T = 2, 40.9k: 29 %,
+// 21 %, 25 %, 25 % (three limbs: 51.5k; 23, 17, 28, 32 %).
 namespace spectral {
 
 constexpr int N = 2048, M = N / 2;     // coefficients; points a transform
 constexpr int K1 = 2, LEVEL = 3;       // components; gadget levels
 constexpr int ROWS = K1 * LEVEL;       // digit rows (forward transforms)
-constexpr int NL = 3;                  // key limbs, PLAN (16, 8, 8)
+constexpr int NL = 2;                  // key limbs, SPECTRAL_PLAN (16, 16)
+constexpr int LIMB_BITS = 16;          // weight of limb 1
 constexpr int OUTS = K1 * NL;          // inverse transforms
 constexpr int FT = 64;                 // threads a transform
 constexpr int GROUPS = 6;              // transforms in flight
 constexpr int THREADS = FT * GROUPS;   // 384
-static_assert(ROWS == OUTS && ROWS == GROUPS, "one slot a row and output");
+constexpr int BFLY = M / 4;            // radix-4 butterflies of pass 3
+static_assert(ROWS == GROUPS, "forward: one slot a group and round");
+static_assert(OUTS <= ROWS, "outputs written over the digit spectra");
 static_assert(M == FT * 16, "passes 1 and 2: 16 points a thread");
+
+#ifdef FHE_SPECTRAL_CLOCKS
+constexpr bool kClocks = true;
+#else
+constexpr bool kClocks = false;
+#endif
+// clock64() ticks of block 0's thread 0 by phase (digits and pass 1,
+// forward passes 2 and 3, contraction, inverse), summed over the steps,
+// [T - 1][phase]; written only in a build with FHE_SPECTRAL_CLOCKS defined
+constexpr int PHASES = 4;
+__device__ unsigned long long phase_clocks[2][PHASES];
 
 __host__ __device__ constexpr size_t smem_bytes(int T) {
   return (size_t)T * (ROWS * M * sizeof(double2) + K1 * N * sizeof(uint32_t));
@@ -559,29 +592,49 @@ __device__ __forceinline__ void pass1_store(double2* s, double2 (&x)[16],
   for (int q = 0; q < 16; ++q) s[swz(j * 16 + q)] = x[at16(q)];
 }
 
-// Pass 2 (radix 16, Ns = 16) of every transform of the block, in place:
-// read all, barrier, write all, a round of GROUPS transforms at a time.
-template <bool INV, int T>
-__device__ __forceinline__ void pass2(double2* sp, const double2* w, int g,
-                                      int j) {
+// The barrier of group g's FT threads alone (named barrier 1 + g; 0 is
+// __syncthreads's): a transform's passes touch its own slot only.
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(FT) : "memory");
+}
+
+// Pass 2 (radix 16, Ns = 16) of slot s, its first half: this thread's
+// points j + 64 q, twiddled and transformed in x.
+template <bool INV>
+__device__ __forceinline__ void pass2_load(const double2* s, const double2* w,
+                                           int j, double2 (&x)[16]) {
+#pragma unroll
+  for (int q = 0; q < 16; ++q) x[q] = s[swz(j + FT * q)];
+  const double2 w1 = tab<INV>(w, (j & 15) * 4);
+  double2 wq = w1;                            // w^{4 (j mod 16) q}
+#pragma unroll
+  for (int q = 1; q < 16; ++q) {
+    x[q] = cmul(x[q], wq);
+    wq = cmul(wq, w1);
+  }
+  dft16<INV>(x);
+}
+// ... and its second half, after a barrier: outputs (j div 16) 256 + (j mod
+// 16) + 16 q.
+__device__ __forceinline__ void pass2_store(double2* s,
+                                            const double2 (&x)[16], int j) {
+  const int base = (j >> 4) * 256 + (j & 15);
+#pragma unroll
+  for (int q = 0; q < 16; ++q) s[swz(base + 16 * q)] = x[at16(q)];
+}
+
+// Pass 2 of every forward transform of the block, in place: read all,
+// barrier, write all, a round of GROUPS transforms at a time.
+template <int T>
+__device__ __forceinline__ void pass2_forward(double2* sp, const double2* w,
+                                              int g, int j) {
 #pragma unroll
   for (int f = g; f < T * ROWS; f += GROUPS) {
     double2* s = sp + f * M;
     double2 x[16];
-#pragma unroll
-    for (int q = 0; q < 16; ++q) x[q] = s[swz(j + FT * q)];
-    const double2 w1 = tab<INV>(w, (j & 15) * 4);
-    double2 wq = w1;                          // w^{4 (j mod 16) q}
-#pragma unroll
-    for (int q = 1; q < 16; ++q) {
-      x[q] = cmul(x[q], wq);
-      wq = cmul(wq, w1);
-    }
-    dft16<INV>(x);
+    pass2_load<false>(s, w, j, x);
     __syncthreads();
-    const int base = (j >> 4) * 256 + (j & 15);
-#pragma unroll
-    for (int q = 0; q < 16; ++q) s[swz(base + 16 * q)] = x[at16(q)];
+    pass2_store(s, x, j);
   }
   __syncthreads();
 }
@@ -634,7 +687,20 @@ ext_product(const int32_t* __restrict__ cts_ms,
   }
   __syncthreads();
 
+  // block 0's thread 0 times the phases of each step (FHE_SPECTRAL_CLOCKS)
+  unsigned long long ticks[PHASES] = {}, t_last = 0;
+  auto mark = [&](int p) {
+    if constexpr (kClocks) {
+      if (blockIdx.x == 0 && tid == 0) {
+        const unsigned long long now = clock64();
+        ticks[p] += now - t_last;
+        t_last = now;
+      }
+    }
+  };
+
   for (int i = 0; i < n; ++i) {
+    if constexpr (kClocks) t_last = clock64();
     // 1. the digits of each row into the head of its slot, as int8
     for (int e = tid; e < T * K1 * N; e += THREADS) {
       const int t = e / (K1 * N), c = (e / N) % K1, m = e % N;
@@ -668,7 +734,8 @@ ext_product(const int32_t* __restrict__ cts_ms,
       pass1_store(sp + f * M, x, j);
     }
     __syncthreads();
-    pass2<false, T>(sp, w, g, j);
+    mark(0);
+    pass2_forward<T>(sp, w, g, j);
 #pragma unroll
     for (int f = g; f < T * ROWS; f += GROUPS) {
       double2* s = sp + f * M;
@@ -682,8 +749,10 @@ ext_product(const int32_t* __restrict__ cts_ms,
       }
     }
     __syncthreads();
+    mark(1);
 
     // 2. the contraction, frequency by frequency, into slot o = c NL + limb
+    // of each instance
     const double2* ki = key + (size_t)i * ROWS * OUTS * M;
     for (int jf = tid; jf < M; jf += THREADS) {
       const int k = swz(jf);
@@ -708,44 +777,61 @@ ext_product(const int32_t* __restrict__ cts_ms,
       }
     }
     __syncthreads();
+    mark(2);
 
-    // 3. the inverse transforms; pass 3's outputs untwisted, divided by M,
-    // rounded and added into acc
-#pragma unroll
-    for (int f = g; f < T * ROWS; f += GROUPS) {
-      double2* s = sp + f * M;
+    // 3. the inverse transforms.  Passes 1 and 2 a transform a group, each
+    // group on its own barrier, so that the T OUTS transforms cost their
+    // number, not rounds of GROUPS: a group past its last transform waits
+    // at the block barrier only.
+    for (int f = g; f < T * OUTS; f += GROUPS) {
+      double2* s = sp + ((f / OUTS) * ROWS + f % OUTS) * M;
       double2 x[16];
 #pragma unroll
       for (int q = 0; q < 16; ++q) x[q] = s[swz(j + FT * q)];
       dft16<true>(x);
-      pass1_store(s, x, j);
+      group_sync(g);
+#pragma unroll
+      for (int q = 0; q < 16; ++q) s[swz(j * 16 + q)] = x[at16(q)];
+      group_sync(g);
+      pass2_load<true>(s, w, j, x);
+      group_sync(g);
+      pass2_store(s, x, j);
     }
     __syncthreads();
-    pass2<true, T>(sp, w, g, j);
+    // Pass 3 over the whole block, a (instance, component, butterfly) a
+    // thread at a time: both limbs' outputs, untwisted, divided by M,
+    // rounded, joined as limb 0 + 2^16 limb 1 and added into acc, whose
+    // words this thread alone writes.
+    for (int e = tid; e < T * K1 * BFLY; e += THREADS) {
+      const int tc = e / BFLY, jj = e % BFLY;
+      const double2* s = sp + ((tc / K1) * ROWS + (tc % K1) * NL) * M;
+      double2 lo[4], hi[4];
+      pass3<true>(s, w, jj, lo);
+      pass3<true>(s + M, w, jj, hi);
+      uint32_t* p = acc + tc * N;
 #pragma unroll
-    for (int f = g; f < T * ROWS; f += GROUPS) {
-      const int t = f / OUTS, o = f % OUTS, limb = o % NL;
-      const int wbits = limb == 0 ? 0 : 8 + 8 * limb;   // 0, 16, 24
-      uint32_t* p = acc + (t * K1 + o / NL) * N;
-#pragma unroll 1
-      for (int u = 0; u < 4; ++u) {
-        const int jj = j + FT * u;
-        double2 x[4];
-        pass3<true>(sp + f * M, w, jj, x);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int m = jj + 256 * q;
-          const double2 y = cmul(x[q], tab<true>(twist, m));
-          const long long re = __double2ll_rn(y.x * (1.0 / M));
-          const long long im = __double2ll_rn(y.y * (1.0 / M));
-          atomicAdd(p + m, (uint32_t)re << wbits);
-          atomicAdd(p + m + M, (uint32_t)im << wbits);
-        }
+      for (int q = 0; q < 4; ++q) {
+        const int m = jj + 256 * q;
+        const double2 tw = tab<true>(twist, m);
+        const double2 a = cmul(lo[q], tw), b = cmul(hi[q], tw);
+        const uint32_t re = (uint32_t)__double2ll_rn(a.x * (1.0 / M)) +
+                            ((uint32_t)__double2ll_rn(b.x * (1.0 / M))
+                             << LIMB_BITS);
+        const uint32_t im = (uint32_t)__double2ll_rn(a.y * (1.0 / M)) +
+                            ((uint32_t)__double2ll_rn(b.y * (1.0 / M))
+                             << LIMB_BITS);
+        p[m] += re;
+        p[m + M] += im;
       }
     }
     __syncthreads();
+    mark(3);
   }
 
+  if constexpr (kClocks) {
+    if (blockIdx.x == 0 && tid == 0)
+      for (int p = 0; p < PHASES; ++p) phase_clocks[T - 1][p] += ticks[p];
+  }
   for (int e = tid; e < T * K1 * N; e += THREADS)
     if (b0 + e / (K1 * N) < B)
       acc_out[(size_t)b0 * K1 * N + e] = (int32_t)acc[e];
@@ -796,7 +882,8 @@ int fhe_blind_rotate(const int32_t* cts_ms, const int32_t* luts,
 // The whole blind rotation through the spectral key (spectral::rotate),
 // enqueued on `stream`; returns a cudaError_t.
 //   cts_ms  [B, n+1] int32 in [0, 2N)      luts [L, N]    lut_idx [B]
-//   key     [n, k1*level, k1, 3, N/2] complex128 (ops/pbs_fft.PLAN limbs)
+//   key     [n, k1*level, k1, 2, N/2] complex128 (the limbs of
+//           ops/pbs_fft.SPECTRAL_PLAN)
 //   tables  [2, N/2] complex128: the twist, the transform's twiddles
 //   acc     [B, k1, N] (output)
 // Takes N = 2048, k1 = 2, level = 3 and 32 - base_log*level >= 1 only.
@@ -811,6 +898,19 @@ int fhe_blind_rotate_spectral(const int32_t* cts_ms, const int32_t* luts,
                           reinterpret_cast<const double2*>(key),
                           reinterpret_cast<const double2*>(tables), acc, B, n,
                           base_log, static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The phase clocks of the spectral rotation, [2][4] (T = 1, then T = 2;
+// digits and pass 1, forward passes 2 and 3, contraction, inverse): clock64()
+// ticks of block 0's thread 0, summed over the steps of every launch since
+// the last call, copied to out and set to zero.  Zeros unless the library
+// was built with -DFHE_SPECTRAL_CLOCKS.  Synchronises the device.
+int fhe_spectral_phase_clocks(unsigned long long* out) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, spectral::phase_clocks,
+                                         sizeof(spectral::phase_clocks));
+  if (err != cudaSuccess) return (int)err;
+  static const unsigned long long zero[2][spectral::PHASES] = {};
+  return (int)cudaMemcpyToSymbol(spectral::phase_clocks, zero, sizeof(zero));
 }
 
 // The same rotation over batch blocks of tb instances, one after another

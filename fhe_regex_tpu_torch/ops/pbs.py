@@ -240,9 +240,9 @@ class DeviceServerKey:
     ``pbs64.round_bsk64``); ``ksk`` the float64 keyswitch matrix of
     ``prepare_ksk`` / ``pbs64.prepare_ksk64``.  For ``fft``, ``bsk`` is
     the key's complex128 spectrum (``pbs_fft.prepare_bsk_fft``).  ``spec``
-    is the same spectrum, beside the key, for ``cuda-fused`` and ``cuda-bg``
-    where their spectral rotation takes the set
-    (``pbs_cuda.spectral_supported``), else None.
+    is the key's spectrum on ``pbs_fft.SPECTRAL_PLAN``, beside the key, for
+    ``cuda-fused`` and ``cuda-bg`` where their spectral rotation takes the
+    set (``pbs_cuda.spectral_supported``), else None.
     """
 
     def __init__(self, params: Params, backend: str, device: torch.device,
@@ -303,7 +303,8 @@ def prepare_server_key(params: Params, server_key,
             bsk = pbs_fft.prepare_bsk_fft(params, bsk)
         elif (backend in ("cuda-fused", "cuda-bg")
               and pbs_cuda.spectral_supported(params)):
-            spec = pbs_fft.prepare_bsk_fft(params, bsk)
+            spec = pbs_fft.prepare_bsk_fft(params, bsk,
+                                           plan=pbs_fft.SPECTRAL_PLAN)
         return DeviceServerKey(params, backend, device, bsk, prepare_ksk(ksk),
                                spec=spec)
     drop = (0, 0)

@@ -292,8 +292,9 @@ def _spectral_tables(N: int, device: torch.device) -> torch.Tensor:
 def _rotate_spectral(params: Params, spec: torch.Tensor, luts, lut_idx,
                      cts_ms) -> torch.Tensor:
     """One launch of the spectral rotation on the key spectrum ``spec``
-    [n, (k+1)l, k+1, 3, N/2] complex128 (``pbs_fft.prepare_bsk_fft``)."""
-    from fhe_regex_tpu_torch.ops.pbs_fft import C128, PLAN
+    [n, (k+1)l, k+1, 2, N/2] complex128 (``pbs_fft.prepare_bsk_fft`` on
+    ``pbs_fft.SPECTRAL_PLAN``)."""
+    from fhe_regex_tpu_torch.ops.pbs_fft import C128, SPECTRAL_PLAN
 
     if not spectral_supported(params):
         raise ValueError(f"{params.name}: the spectral rotation takes N = "
@@ -301,8 +302,9 @@ def _rotate_spectral(params: Params, spec: torch.Tensor, luts, lut_idx,
     k1, N, n = (params.glwe_dimension + 1, params.polynomial_size,
                 params.lwe_dimension)
     B, dev = cts_ms.shape[0], cts_ms.device
-    _check("spec", spec, (n, k1 * params.pbs_level, k1, len(PLAN), N // 2),
-           C128, dev)
+    _check("spec", spec,
+           (n, k1 * params.pbs_level, k1, len(SPECTRAL_PLAN), N // 2), C128,
+           dev)
     acc = torch.empty((B, k1, N), device=dev, dtype=torch.int32)
     _call("fhe_blind_rotate_spectral", dev, cts_ms.data_ptr(),
           luts.data_ptr(), lut_idx.data_ptr(), spec.data_ptr(),

@@ -15,13 +15,17 @@ The GGSW key polynomials are split into signed balanced limbs of widths
 and their spectra are computed once in float64 on the key's device,
 where the JAX package rounds them to float32.  The rotation runs in
 float64 (complex128) too: the largest per-limb value, 64 * 2^15 * N *
-(k+1)l ~= 2^34.6 for the 16-bit limb at N = 2048, lies far inside the
-53-bit mantissa, so every limb rounds to its exact integer.  Each limb
-is rounded to int64, scaled by its weight and the sum wrapped mod 2^32:
-the backend is bit-identical to the exact ones
-(``torch``, ``cuda-fused``) and to the JAX ``fft`` on any limb plan that
-is exact in float32 there ("8").  So the port has one plan and one
-transform and reads neither ``FHE_REGEX_FFT_LIMBS`` nor
+(k+1)l ~= 2^34.6 for a 16-bit limb at N = 2048, lies far inside the
+53-bit mantissa, so every limb rounds to its exact integer.  The spectral
+rotation of ``cuda-fused`` and ``cuda-bg`` (``csrc/blind_rotate.cu``)
+reads a spectrum of its own plan, ``SPECTRAL_PLAN`` = (16, 16): in
+float64 a 16-bit limb at weight 2^16 has the bound of one at 2^0, and two
+limbs take two thirds of the inverse transforms and key reads of three.
+Each limb is rounded to int64, scaled by its weight and the sum wrapped
+mod 2^32: the backend is bit-identical to the exact ones (``torch``,
+``cuda-fused``) and to the JAX ``fft`` on any limb plan that is exact in
+float32 there ("8").  So the backend has one plan and one transform and
+reads neither ``FHE_REGEX_FFT_LIMBS`` nor
 ``FHE_REGEX_FFT_TRANSFORM``; the JAX package's fold mod 2^32 before the
 f32 rounding (``_round_mod32``), its limb-plan noise model and its
 four-step ``matmul`` transform have no counterpart.
@@ -49,6 +53,8 @@ C128 = torch.complex128
 
 #: the limb widths of the key spectrum, low to high (JAX plan "mixed")
 PLAN = (16, 8, 8)
+#: the limb widths of the spectral rotation's key spectrum, low to high
+SPECTRAL_PLAN = (16, 16)
 
 
 # ---------------- key preparation ----------------
@@ -98,28 +104,28 @@ def negacyclic_fft(a: torch.Tensor) -> torch.Tensor:
     return torch.fft.fft(torch.complex(a[..., :M], a[..., M:]) * t, dim=-1)
 
 
-def prepare_bsk_fft(params: Params, bsk, device=None,
-                    chunk: int = 128) -> torch.Tensor:
+def prepare_bsk_fft(params: Params, bsk, device=None, chunk: int = 128,
+                    plan: tuple = PLAN) -> torch.Tensor:
     """bsk [n, (k+1)l, k+1, N] (a uint32 array or an int32 tensor) ->
-    spectral key [n, (k+1)l, k+1, L, M] complex128, L = len(PLAN), on
+    spectral key [n, (k+1)l, k+1, L, M] complex128, L = len(plan), on
     ``device`` (default: the tensor's own, a host array's the CPU).
 
-    The limbs of ``PLAN`` and their float64 spectra (cuFFT on a card), not
+    The limbs of ``plan`` and their float64 spectra (cuFFT on a card), not
     rounded to float32 as the JAX package rounds them, ``chunk`` steps at a
-    time.  The spectrum of ``fft``'s key and of ``cuda-fused``'s and
-    ``cuda-bg``'s spectral rotation.  Row order along axis 1 is
-    (component, level), the most significant gadget digit first, as
-    ``stage1_digits`` gives the digits.
+    time.  With ``PLAN``, the spectrum of ``fft``'s key; with
+    ``SPECTRAL_PLAN``, that of ``cuda-fused``'s and ``cuda-bg``'s spectral
+    rotation.  Row order along axis 1 is (component, level), the most
+    significant gadget digit first, as ``stage1_digits`` gives the digits.
     """
     if not isinstance(bsk, torch.Tensor):
         bsk = torch.from_numpy(np.ascontiguousarray(bsk).view(np.int32))
     if device is not None:
         bsk = bsk.to(device)
     n, rows, k1, N = bsk.shape
-    out = torch.empty((n, rows, k1, len(PLAN), N // 2), dtype=C128,
+    out = torch.empty((n, rows, k1, len(plan), N // 2), dtype=C128,
                       device=bsk.device)
     for i0 in range(0, n, chunk):
-        limbs = _limbs_signed(bsk[i0:i0 + chunk], PLAN).to(F64)
+        limbs = _limbs_signed(bsk[i0:i0 + chunk], plan).to(F64)
         out[i0:i0 + chunk] = negacyclic_fft(limbs).movedim(0, 3)
     return out
 

@@ -571,8 +571,12 @@ def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
 # csrc/blind_rotate.cu's spectral::ext_product runs each CMUX step as
 # _spectral_step below computes it: fold and twist, Stockham transforms of
 # radix 16, 16, 4 on slots stored at swz(k), contraction with the key's
-# limb spectra (PLAN (16, 8, 8)), inverse, per-limb rounding,
+# limb spectra (SPECTRAL_PLAN (16, 16), the kernel's; PLAN (16, 8, 8), the
+# ``fft`` backend's, is held too), inverse, per-limb rounding,
 # recombination mod 2^32.  The twin must equal the exact step bit for bit.
+
+#: (kernel's plan, fft backend's plan), the limb plans the twin is run on
+PLANS = [(16, 16), (16, 8, 8)]
 
 
 def _swz(k: torch.Tensor) -> torch.Tensor:
@@ -639,11 +643,12 @@ def _stockham(buf: torch.Tensor, w: torch.Tensor,
 
 
 def _spectral_step(digits: torch.Tensor, spec_i: torch.Tensor,
-                   acc: torch.Tensor):
+                   acc: torch.Tensor, plan: tuple = (16, 16)):
     """One CMUX step's external product as the spectral kernel computes it:
     digits [B, (k+1)l, N] int8, spec_i [(k+1)l, k+1, L, M] complex128 (one
-    step of the spectral key), acc [B, k+1, N] int32 -> (the new acc, the
-    largest distance of any limb's value from its integer).
+    step of the spectral key on the limb plan ``plan``, L = len(plan)), acc
+    [B, k+1, N] int32 -> (the new acc, the largest distance of any limb's
+    value from its integer).
 
     Fold and twist each digit row, u_j = (d_j + i d_{j+M}) t_j, into its
     swizzled slot; transform; contract each frequency over the rows with
@@ -665,8 +670,8 @@ def _spectral_step(digits: torch.Tensor, spec_i: torch.Tensor,
     y = _stockham(buf, w, inverse=True)[..., slot] * torch.conj(tw) * (1 / M)
     vals = torch.cat([y.real, y.imag], dim=-1)                # [B, k1, L, N]
     r = torch.round(vals)
-    weights = torch.tensor([1 << s for s in pbs_fft.plan_weights(
-        pbs_fft.PLAN)], dtype=torch.int64)[:, None]
+    weights = torch.tensor([1 << s for s in pbs_fft.plan_weights(plan)],
+                           dtype=torch.int64)[:, None]
     out = (r.to(torch.int64) * weights).sum(dim=2)
     return (tpbs.wrap_i32(acc.to(torch.int64) + out),
             float((vals - r).abs().max()))
@@ -682,14 +687,15 @@ def _jax_step(digits: np.ndarray, ggsw: np.ndarray, acc: np.ndarray):
 
 
 def _spectral_case(P, ggsw: np.ndarray, digits: np.ndarray,
-                   acc: np.ndarray, jax_too: bool = True) -> float:
-    """The twin against the port's exact step (and the JAX reference);
-    returns the largest distance of a limb from its integer."""
+                   acc: np.ndarray, plan: tuple, jax_too: bool = True) -> float:
+    """The twin on the limb plan ``plan`` against the port's exact step
+    (and the JAX reference); returns the largest distance of a limb from
+    its integer."""
     from fhe_regex_tpu_torch.ops import pbs_fft
 
     tp = _port_params(P) if hasattr(P, "name") else P
-    spec = pbs_fft.prepare_bsk_fft(tp, ggsw[None])[0]
-    got, dist = _spectral_step(torch.from_numpy(digits), spec, _t(acc))
+    spec = pbs_fft.prepare_bsk_fft(tp, ggsw[None], plan=plan)[0]
+    got, dist = _spectral_step(torch.from_numpy(digits), spec, _t(acc), plan)
     want = tpbs.external_product_step(tp, torch.from_numpy(digits),
                                       _t(ggsw), _t(acc))
     assert torch.equal(got, want)
@@ -704,11 +710,13 @@ def _digits(rng, B, rows, N, half=64):
     return d
 
 
+@pytest.mark.parametrize("plan", PLANS)
 @pytest.mark.parametrize("which", ["keys", "noisy_keys"])
-def test_spectral_twin_equals_exact_step(request, which):
+def test_spectral_twin_equals_exact_step(request, which, plan):
     """At TEST_PARAMS / TEST_PARAMS_NOISY, on the first GGSW of the real
-    bootstrap key, random digits and accumulators: bit-equal to
-    ``ops.pbs.external_product_step`` and to the JAX reference."""
+    bootstrap key, random digits and accumulators, on either limb plan:
+    bit-equal to ``ops.pbs.external_product_step`` and to the JAX
+    reference."""
     P = TEST_PARAMS if which == "keys" else TEST_PARAMS_NOISY
     sk = request.getfixturevalue(which)[1]
     N, k1 = P.polynomial_size, P.glwe_dimension + 1
@@ -716,14 +724,17 @@ def test_spectral_twin_equals_exact_step(request, which):
     rng = np.random.default_rng(17)
     ggsw = np.asarray(sk.bsk)[0].astype(np.uint32)
     dist = _spectral_case(P, ggsw, _digits(rng, 5, rows, N),
-                          _random_u32(rng, (5, k1, N)))
-    print(f"{P.name}: largest distance of a limb from its integer {dist:.3g}")
+                          _random_u32(rng, (5, k1, N)), plan)
+    print(f"{P.name} {plan}: largest distance of a limb from its integer "
+          f"{dist:.3g}")
     assert dist < 1 / 8
 
 
-def test_spectral_twin_production_step():
-    """One step at the production set (N = 2048, l = 3, base 2^7): random
-    key words, digits and accumulators; bit-equal to both references."""
+@pytest.mark.parametrize("plan", PLANS)
+def test_spectral_twin_production_step(plan):
+    """One step at the production set (N = 2048, l = 3, base 2^7) on
+    either limb plan: random key words, digits and accumulators; bit-equal
+    to both references."""
     from fhe_regex_tpu_torch.params import get_params
 
     P = get_params("TPU_MESSAGE_2_CARRY_2")
@@ -732,36 +743,51 @@ def test_spectral_twin_production_step():
     rng = np.random.default_rng(2048)
     dist = _spectral_case(P, _random_u32(rng, (rows, k1, N)),
                           _digits(rng, 2, rows, N),
-                          _random_u32(rng, (2, k1, N)))
-    print(f"production step: largest distance of a limb from its integer "
-          f"{dist:.3g}")
+                          _random_u32(rng, (2, k1, N)), plan)
+    print(f"production step {plan}: largest distance of a limb from its "
+          f"integer {dist:.3g}")
     assert dist < 1 / 8
 
 
+#: each plan's word with every limb at its extreme, and those limbs; the
+#: top limb is negative by a carry of +1 out of bit 32
+WORST_WORDS = {
+    (16, 16): ((-(1 << 15) - (1 << 15 << 16)) & 0xFFFFFFFF,
+               [-(1 << 15), -(1 << 15)]),
+    (16, 8, 8): ((-(1 << 15) - (1 << 7 << 16) - (1 << 7 << 24)) & 0xFFFFFFFF,
+                 [-(1 << 15), -(1 << 7), -(1 << 7)]),
+}
+
+
+@pytest.mark.parametrize("plan", PLANS)
 @pytest.mark.parametrize("sign", [-1, 1])
-def test_spectral_twin_worst_case_margin(sign):
+def test_spectral_twin_worst_case_margin(sign, plan):
     """The largest limb values the production set can give: every digit at
-    -64 (or 64), every key word with each limb of PLAN (16, 8, 8) at its
-    extreme (-2^15, -2^7, -2^7), so that coefficient N-1 of every limb sums
-    64 * 2^b * N * (k+1)l with one sign.  Exact still, and each limb's
-    value lies within 1/8 of its integer (printed)."""
+    -64 (or 64), every key word with each limb of the plan at its extreme
+    ((16, 16): -2^15 and -2^15, the word 0x7FFF8000; (16, 8, 8): -2^15,
+    -2^7, -2^7; the top limb's carry of +1 out of bit 32 checked), so
+    that coefficient N-1 of every limb sums 64 * 2^b * N * (k+1)l with one
+    sign.  Exact still, and each limb's value lies within 1/8 of its
+    integer (printed)."""
     from fhe_regex_tpu_torch.ops import pbs_fft
     from fhe_regex_tpu_torch.params import get_params
 
     P = get_params("TPU_MESSAGE_2_CARRY_2")
     N, k1 = P.polynomial_size, P.glwe_dimension + 1
     rows = k1 * P.pbs_level
-    word = (-(1 << 15) - (1 << 7 << 16) - (1 << 7 << 24)) & 0xFFFFFFFF
-    limbs = pbs_fft._limbs_signed(
-        torch.from_numpy(np.array([word], np.uint32).view(np.int32)),
-        pbs_fft.PLAN)
-    assert limbs.ravel().tolist() == [-(1 << 15), -(1 << 7), -(1 << 7)]
+    word, extremes = WORST_WORDS[plan]
+    as_i32 = torch.from_numpy(np.array([word], np.uint32).view(np.int32))
+    limbs = pbs_fft._limbs_signed(as_i32, plan)
+    assert limbs.ravel().tolist() == extremes
+    weights = torch.tensor([1 << w for w in pbs_fft.plan_weights(plan)])
+    carry = (as_i32.to(torch.int64) - (limbs[:, 0] * weights).sum()) >> 32
+    assert carry.item() == 1
     ggsw = np.full((rows, k1, N), word, np.uint32)
     digits = np.full((2, rows, N), 64 * sign, np.int8)
     acc = _random_u32(np.random.default_rng(5), (2, k1, N))
-    dist = _spectral_case(P, ggsw, digits, acc, jax_too=False)
-    print(f"worst case, digits {64 * sign}: largest distance of a limb from "
-          f"its integer {dist:.3g}")
+    dist = _spectral_case(P, ggsw, digits, acc, plan, jax_too=False)
+    print(f"worst case {plan}, digits {64 * sign}: largest distance of a "
+          f"limb from its integer {dist:.3g}")
     assert dist < 1 / 8
 
 
@@ -788,32 +814,87 @@ def test_stockham_transform_is_the_dft(M):
     assert float((inv - torch.fft.ifft(x) * M).abs().max()) < 1e-10
 
 
-def test_spectral_twin_rotation_equals_blind_rotate(noisy_keys):
+@pytest.mark.parametrize("plan", PLANS)
+def test_spectral_twin_rotation_equals_blind_rotate(noisy_keys, plan):
     """A whole rotation of twin steps (``stage1_digits``, then the spectral
-    step on the key's spectrum) equals the plain ``blind_rotate``."""
+    step on the key's spectrum, on either limb plan) equals the plain
+    ``blind_rotate``."""
     from fhe_regex_tpu_torch.ops import pbs_fft
 
     params, bsk, luts, idx, ms = _rotation_args(noisy_keys, 6, seed=3)
-    spec = pbs_fft.prepare_bsk_fft(params, bsk)
+    spec = pbs_fft.prepare_bsk_fft(params, bsk, plan=plan)
     acc = tpbs.init_accumulator(params, luts, idx, ms)
     for i in range(params.lwe_dimension):
         d = tpbs.stage1_digits(params, acc, ms[:, i])
-        acc, dist = _spectral_step(d, spec[i], acc)
+        acc, dist = _spectral_step(d, spec[i], acc, plan)
         assert dist < 1 / 8
     assert torch.equal(acc, tpbs.blind_rotate(params, bsk, luts, idx, ms))
 
 
-def test_device_spectrum_equals_host_spectrum(noisy_keys):
+@pytest.mark.parametrize("plan", PLANS)
+def test_device_spectrum_equals_host_spectrum(noisy_keys, plan):
     """``prepare_bsk_fft`` of the key as a tensor, where cuda-fused has it
     (on the card), in chunks of 5 steps, is its spectrum of the host
-    array, bit for bit."""
+    array, bit for bit, on either limb plan."""
     from fhe_regex_tpu_torch.ops import pbs_fft
 
     tsk = server_key_from_jax(noisy_keys[1])
-    got = pbs_fft.prepare_bsk_fft(tsk.params, _t(tsk.bsk), chunk=5)
-    want = pbs_fft.prepare_bsk_fft(tsk.params, tsk.bsk)
-    assert got.shape == want.shape == (16, 6, 2, 3, 128)
+    got = pbs_fft.prepare_bsk_fft(tsk.params, _t(tsk.bsk), chunk=5,
+                                  plan=plan)
+    want = pbs_fft.prepare_bsk_fft(tsk.params, tsk.bsk, plan=plan)
+    assert got.shape == want.shape == (16, 6, 2, len(plan), 128)
     assert torch.equal(got, want)
+
+
+def test_spectral_key_follows_the_kernels_plan(monkeypatch, noisy_keys):
+    """The spectral rotation's key is built on ``SPECTRAL_PLAN`` (16, 16),
+    the limbs of ``csrc/blind_rotate.cu``'s ``spectral`` namespace (NL = 2,
+    limb 1 at weight 2^LIMB_BITS = 2^16), and its limbs give the key back
+    mod 2^32; the ``fft`` backend's key keeps ``PLAN`` (16, 8, 8).
+    ``_rotate_spectral`` takes the two-limb shape only."""
+    import re
+
+    from fhe_regex_tpu_torch.ops import pbs_fft
+    from fhe_regex_tpu_torch.params import get_params
+
+    assert pbs_fft.PLAN == (16, 8, 8)
+    assert pbs_fft.SPECTRAL_PLAN == (16, 16)
+    assert pbs_fft.plan_weights(pbs_fft.SPECTRAL_PLAN) == (0, 16)
+    src = (pbs_cuda.CSRC / "blind_rotate.cu").read_text()
+    spectral = src[src.index("namespace spectral {"):]
+    assert re.search(r"constexpr int NL = (\d+);", spectral)[1] == "2"
+    assert re.search(r"constexpr int LIMB_BITS = (\d+);", spectral)[1] == "16"
+
+    tsk = server_key_from_jax(noisy_keys[1])
+    bsk = _t(tsk.bsk)
+    limbs = pbs_fft._limbs_signed(bsk, pbs_fft.SPECTRAL_PLAN)
+    assert int(limbs.abs().max()) <= 1 << 15
+    assert torch.equal(tpbs.wrap_i32(limbs[0] + (limbs[1] << 16)), bsk)
+
+    # prepare_server_key gives cuda-fused / cuda-bg the two-limb spectrum
+    # and fft the three-limb key (the CUDA device check stood in for)
+    monkeypatch.setattr(tpbs, "CUDA_BACKENDS", ())
+    monkeypatch.setattr(pbs_cuda, "spectral_supported", lambda p: True)
+    n, rows, k1, N = bsk.shape
+    for backend, L in (("cuda-fused", 2), ("cuda-bg", 2)):
+        dk = tpbs.prepare_server_key(tsk.params, tsk, "cpu", backend)
+        assert dk.spec.shape == (n, rows, k1, L, N // 2)
+        assert torch.equal(dk.spec, pbs_fft.prepare_bsk_fft(
+            tsk.params, bsk, plan=pbs_fft.SPECTRAL_PLAN))
+    dk = tpbs.prepare_server_key(tsk.params, tsk, "cpu", "fft")
+    assert dk.spec is None and dk.bsk.shape == (n, rows, k1, 3, N // 2)
+    monkeypatch.undo()
+
+    # the kernel's wrapper refuses the three-limb shape before anything
+    # else, and takes the two-limb one (then stops at its contiguity check:
+    # a stand-in without 510 MB of memory)
+    P = get_params("TPU_MESSAGE_2_CARRY_2")
+    n, rows, k1, M = (P.lwe_dimension, 6, 2, P.polynomial_size // 2)
+    ms = torch.zeros((8, n + 1), dtype=torch.int32)
+    for L, match in ((3, "has shape"), (2, "must be contiguous")):
+        spec = torch.zeros(1, dtype=torch.complex128).expand(n, rows, k1, L, M)
+        with pytest.raises(ValueError, match=match):
+            pbs_cuda._rotate_spectral(P, spec, None, None, ms)
 
 
 def test_spectral_kernels_carry_rotation_names():
