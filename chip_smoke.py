@@ -173,8 +173,14 @@ Needs one CUDA device, ``nvcc`` and ``nvidia-smi``; builds the kernels from
    and the wrapper at B = 8, 16, 64, 256 and 1024; both paths timed at B
    = 8 ... 1024 beside the limb and FFT bounds of ``portbench/roofline.py``
    and the FFT bound of the kernel's plan (the crossover sweep); the
-   clock64 phase split of a step at T = 1 and 2 from a build with
-   -DFHE_SPECTRAL_CLOCKS; a JSON line ``{"spectral": ...}``.
+   cluster pair (``spectral::pair``, which ``pbs_cuda.spectral_cluster``
+   chooses while 2 B <= the SM count) at B = 1, 8, 16, 32, 64, 66 and the
+   one-block kernel at 67, each bit-equal to ``ext_product<1>`` on the
+   same rows and to the plain rotation, the pair timed beside the
+   one-block kernel at B = 8 ... 64 and counted as ``spectral_pair``; the
+   clock64 phase split of a step at T = 1, T = 2 and on the pair (its
+   exchange too) from a build with -DFHE_SPECTRAL_CLOCKS; a JSON line
+   ``{"spectral": ...}``.
 
 Before each main path every launch count is set to 0; just after, the
 path's kernel must show launches (on the ``fft`` path: none).  Any failure
@@ -1357,8 +1363,11 @@ def spectral_phase(pbs_cuda, params, ck, sk, blind_rotate):
             steps0 = pbs_cuda.rotation_steps()
             main = pbs_cuda.blind_rotate_fused(*args, spec=dk.spec)
             steps1 = pbs_cuda.rotation_steps()
+            pair = pbs_cuda.spectral_cluster(B, _sm_count()) == 2
             if (steps1["spectral"] - steps0["spectral"]
                     != params.lwe_dimension * B
+                    or steps1["spectral_pair"] - steps0["spectral_pair"]
+                    != pair * params.lwe_dimension * B
                     or steps1["limb"] != steps0["limb"]):
                 raise AssertionError(f"B={B}: rotation_steps {steps0} -> "
                                      f"{steps1}")
@@ -1389,21 +1398,86 @@ def spectral_phase(pbs_cuda, params, ck, sk, blind_rotate):
               f"{row['limb_bound_ms']:.3f}, fft {row['fft_bound_ms']:.3f} "
               f"(16, 8, 8), {row['plan_bound_ms']:.3f} {SPECTRAL_PLAN} ms",
               flush=True)
+    out["pair"] = pair_phase(pbs_cuda, params, ck, dk, blind_rotate)
     out["phase_clocks"] = spectral_clocks(pbs_cuda, params, ck, dk)
     return out
 
 
+def _sm_count() -> int:
+    return torch.cuda.get_device_properties(DEVICE).multi_processor_count
+
+
+PAIR_EQUAL = (1, 8, 16, 32, 64, 66, 67)     # checked bit for bit
+PAIR_TIMED = (8, 16, 32, 64)                # timed beside ext_product<1>
+
+
+def pair_phase(pbs_cuda, params, ck, dk, blind_rotate):
+    """The cluster pair of the spectral rotation (``spectral::pair``): at
+    each B of ``PAIR_EQUAL`` the rotation ``spectral_cluster`` chooses
+    (the pair while 2 B <= the SM count, one block an instance above),
+    bit-equal, tolerance zero, to ``ext_product<1>`` on the same rows
+    (``cluster`` 1) and to the plain rotation; at each B of ``PAIR_TIMED``
+    device ms of both (3 warm calls each between CUDA events); the
+    wrapper's launch counted under ``spectral_pair``.  Returns the rows of
+    the ``pair`` entry of the ``{"spectral": ...}`` line."""
+    sms = _sm_count()
+    rows = []
+    for B in PAIR_EQUAL:
+        x = _rotation_inputs(params, ck, B, seed=2200 + B)
+        args = (x["luts"], x["lut_idx"], x["ms"])
+        cluster = pbs_cuda.spectral_cluster(B, sms)
+
+        def chosen():
+            return pbs_cuda._rotate_spectral(params, dk.spec, *args)
+
+        def one_block():
+            return pbs_cuda._rotate_spectral(params, dk.spec, *args, 1)
+
+        got, one = chosen(), one_block()
+        want = blind_rotate(params, dk.bsk, *args)
+        for name, other in (("ext_product<1>", one), ("plain", want)):
+            if not torch.equal(got, other):
+                raise AssertionError(
+                    f"spectral rotation B={B} (cluster {cluster}) != {name} "
+                    f"(max |diff| {_max_abs_err(got, other)})")
+        row = {"B": B, "cluster": cluster,
+               "equal": ["ext_product<1>", "plain"]}
+        if B in PAIR_TIMED:
+            row["ms"] = [_event_ms(chosen)[1] for _ in range(3)]
+            row["one_block_ms"] = [_event_ms(one_block)[1] for _ in range(3)]
+        rows.append(row)
+        print(f"spectral rotation {params.name} B={B} on {cluster} block(s) "
+              f"an instance ({sms} SMs): equal to ext_product<1> and plain"
+              + (f"; device ms {_fmt(row['ms'])} (one block "
+                 f"{_fmt(row['one_block_ms'])})" if "ms" in row else ""),
+              flush=True)
+    B = 8
+    x = _rotation_inputs(params, ck, B, seed=2300)
+    steps0, launches0 = pbs_cuda.rotation_steps(), pbs_cuda.rotation_launches()
+    pbs_cuda.blind_rotate_fused(params, dk.bsk, x["luts"], x["lut_idx"],
+                                x["ms"], spec=dk.spec)
+    steps1, launches1 = pbs_cuda.rotation_steps(), pbs_cuda.rotation_launches()
+    if (steps1["spectral_pair"] - steps0["spectral_pair"]
+            != params.lwe_dimension * B
+            or launches1["spectral_pair"] - launches0["spectral_pair"] != 1):
+        raise AssertionError(f"B={B}: spectral_pair not counted ({steps0} -> "
+                             f"{steps1}, {launches0} -> {launches1})")
+    return rows
+
+
 SPECTRAL_PHASES = ("digits and pass 1", "forward passes 2 and 3",
-                   "contraction", "inverse")
+                   "contraction", "inverse", "exchange")
 
 
 def spectral_clocks(pbs_cuda, params, ck, dk):
     """The phase split of the spectral rotation's step: ``csrc/
     blind_rotate.cu`` built again with -DFHE_SPECTRAL_CLOCKS (into
-    ``build/`` beside the library), one rotation at B = 8 (T = 1 instance a
-    block) and one at B = 1024 (T = 2) on the key's spectrum, each equal to
-    the library's; block 0's clock64() ticks a step by phase
-    (``SPECTRAL_PHASES``).  Returns {"T=1": {phase: ticks}, "T=2": ...}."""
+    ``build/`` beside the library), one rotation at B = 8 on one block an
+    instance (T = 1), one at B = 1024 (T = 2) and one at B = 8 on the
+    cluster pair, on the key's spectrum, each equal to the library's; block
+    0's clock64() ticks a step by phase (``SPECTRAL_PHASES``; the exchange,
+    the pair's alone, is part of its contraction).  Returns {"T=1": {phase:
+    ticks}, "T=2": ..., "pair": ...}."""
     import ctypes
 
     lib_path = pbs_cuda.build()
@@ -1418,7 +1492,7 @@ def spectral_clocks(pbs_cuda, params, ck, dk):
                                f"{res.stderr}")
     lib = ctypes.CDLL(str(so))
     rotate = lib.fhe_blind_rotate_spectral
-    rotate.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [
+    rotate.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     rotate.restype = ctypes.c_int
     lib.fhe_spectral_phase_clocks.argtypes = [ctypes.c_void_p]
@@ -1427,16 +1501,18 @@ def spectral_clocks(pbs_cuda, params, ck, dk):
                 params.lwe_dimension)
     tables = pbs_cuda._spectral_tables(N, torch.device(DEVICE))
     out = {}
-    for B, T in ((8, 1), (1024, 2)):
+    cols = len(SPECTRAL_PHASES)
+    for B, cluster, row, name in ((8, 1, 0, "T=1"), (1024, 1, 1, "T=2"),
+                                  (8, 2, 2, "pair")):
         x = _rotation_inputs(params, ck, B, seed=1900 + B)
         acc = torch.empty((B, k1, N), dtype=torch.int32, device=DEVICE)
-        ticks = (ctypes.c_ulonglong * (2 * len(SPECTRAL_PHASES)))()
+        ticks = (ctypes.c_ulonglong * (3 * cols))()
 
         def call():
             err = rotate(x["ms"].data_ptr(), x["luts"].data_ptr(),
                          x["lut_idx"].data_ptr(), dk.spec.data_ptr(),
                          tables.data_ptr(), acc.data_ptr(), B, n, k1, N,
-                         params.pbs_level, params.pbs_base_log,
+                         params.pbs_level, params.pbs_base_log, cluster,
                          torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"clocked spectral rotation: {err}")
@@ -1449,19 +1525,20 @@ def spectral_clocks(pbs_cuda, params, ck, dk):
         if lib.fhe_spectral_phase_clocks(ticks) != 0:
             raise RuntimeError("fhe_spectral_phase_clocks failed")
         want = pbs_cuda._rotate_spectral(params, dk.spec, x["luts"],
-                                         x["lut_idx"], x["ms"])
+                                         x["lut_idx"], x["ms"], cluster)
         if not torch.equal(acc, want):
             raise AssertionError(f"clocked spectral rotation B={B} != the "
                                  f"library's")
-        per = [ticks[len(SPECTRAL_PHASES) * (T - 1) + p] / n
-               for p in range(len(SPECTRAL_PHASES))]
+        per = [ticks[cols * row + p] / n for p in range(cols)]
+        phases = SPECTRAL_PHASES if cluster == 2 else SPECTRAL_PHASES[:-1]
+        per = per[:len(phases)]
         if min(per) <= 0:
-            raise AssertionError(f"phase clocks T={T}: {per}")
-        total = sum(per)
-        out[f"T={T}"] = dict(zip(SPECTRAL_PHASES, per))
-        print(f"spectral step T={T} (B={B}): {total:.0f} clocks; "
-              + ", ".join(f"{name} {t:.0f} ({100 * t / total:.1f} %)"
-                          for name, t in zip(SPECTRAL_PHASES, per)),
+            raise AssertionError(f"phase clocks {name}: {per}")
+        total = sum(per[:4])                   # the exchange lies inside
+        out[name] = dict(zip(phases, per))
+        print(f"spectral step {name} (B={B}): {total:.0f} clocks; "
+              + ", ".join(f"{p} {t:.0f} ({100 * t / total:.1f} %)"
+                          for p, t in zip(phases, per)),
               flush=True)
     return out
 
@@ -2324,10 +2401,13 @@ def main() -> int:
                                        times=warm3)
     rot3 = pbs_cuda.launch_delta(rot1, pbs_cuda.rotation_launches())
     spectral_launches = rot3.pop("fhe_blind_rotate_spectral", 0)
+    pair_launches = rot3.pop("spectral_pair", 0)
     if rot3 or spectral_launches != main_launches:
         raise AssertionError(f"main path: blind_rotate_fused launches "
                              f"{main_launches}, spectral {spectral_launches}, "
                              f"limb {rot3}: not every rotation spectral")
+    print(f"main path: {spectral_launches} spectral rotations, "
+          f"{pair_launches} of them on the cluster pair", flush=True)
 
     # the result is right by the repo's own means: the same ciphertext as
     # the plain backend on the card, and as the CPU on a small set

@@ -457,9 +457,11 @@ int rotate32(const int32_t* cts_ms, const int32_t* luts,
 // step).  What the design does:
 //  * T = 2 instances a block above one wave of the card (B > 132) halve
 //    the key traffic an instance; T = 1 below, so a narrow batch spreads
-//    over B SMs.  Shared memory is T x (6 x 16 KB of spectra + 16 KB of
-//    accumulator), 229,376 bytes at T = 2 of the 232,448 a block may have:
-//    one block an SM, 12 warps, 168 registers a thread, no spills.  The key
+//    over B SMs, and below half a wave (2 B <= the SM count) the cluster
+//    pair of `pair::ext_product` spreads it over 2 B.  Shared memory is T
+//    x (6 x 16 KB of spectra + 16 KB of accumulator), 229,376 bytes at T =
+//    2 of the 232,448 a block may have: one block an SM, 12 warps, 168
+//    registers a thread, no spills.  The key
 //    goes around L1 (ld.global.cg), so the twist and twiddle tables (32 KB)
 //    keep what is left of it.
 //  * Forward: 6 T transforms on 6 groups of 64 threads, T rounds.  Inverse:
@@ -511,9 +513,13 @@ constexpr bool kClocks = false;
 #endif
 // clock64() ticks of block 0's thread 0 by phase (digits and pass 1,
 // forward passes 2 and 3, contraction, inverse), summed over the steps,
-// [T - 1][phase]; written only in a build with FHE_SPECTRAL_CLOCKS defined
+// [T - 1][phase] for ext_product<T>, row 2 for the cluster pair, whose
+// column PHASES holds the part of its contraction spent in the exchange
+// (its last remote store to the end of the cluster barrier); written only
+// in a build with FHE_SPECTRAL_CLOCKS defined
 constexpr int PHASES = 4;
-__device__ unsigned long long phase_clocks[2][PHASES];
+constexpr int CLOCK_ROWS = 3, CLOCK_COLS = PHASES + 1;
+__device__ unsigned long long phase_clocks[CLOCK_ROWS][CLOCK_COLS];
 
 __host__ __device__ constexpr size_t smem_bytes(int T) {
   return (size_t)T * (ROWS * M * sizeof(double2) + K1 * N * sizeof(uint32_t));
@@ -837,11 +843,488 @@ ext_product(const int32_t* __restrict__ cts_ms,
       acc_out[(size_t)b0 * K1 * N + e] = (int32_t)acc[e];
 }
 
-// One spectral rotation of B instances on `stream`, T = 1 instance a block
-// while B blocks fit one wave of the card, else 2; returns a cudaError_t.
+// ---- the cluster pair: one instance's step on two SMs ----
+//
+// Below half a wave (2 B <= the SM count, which ops/pbs_cuda.py's
+// spectral_cluster reads from the device) ext_product<1> would leave most
+// SMs idle while each runs one instance's step as a chain of ~23k clocks:
+// its FFT passes are latency chains of 64 threads a transform, 16 points a
+// thread, and its contraction reads the step's 393 KB of key spectrum at
+// the L2 bandwidth one SM takes in.  Here a cluster of two blocks on two
+// SMs runs one instance; block c owns GLWE component c (its 8 KB
+// accumulator) and, each step:
+//  1. computes the digits of its own component's 3 rows, 16 coefficients a
+//     thread, each thread keeping the level of its group (the 3 levels are
+//     one carry chain, so every group runs it; no staging, no barrier),
+//     folds, twists and transforms row g on group g: Stockham passes of
+//     radix 8, 8, 16 in place with 128 threads a transform, 8 points a
+//     thread; the radix-16 pass is a 2 x 8 DFT over the lane pair (l, l ^
+//     16), each lane the 8-point DFT of its half of the inputs, then one
+//     exchange of 4 values by shuffle and radix-2 butterflies;
+//  2. contracts its rows 3c .. 3c + 2 with their half of the step's key
+//     (196,608 bytes): partial spectra of all 4 outputs (component, limb); its own
+//     two over its first two slots, the peer's two into the peer's shared
+//     memory (distributed shared memory, 32 KB) in a receive slot of two,
+//     by step parity, so one cluster barrier a step (arrive.release,
+//     wait.acquire) orders both the exchange and the reuse of a slot.  The
+//     first half of those key rows (96 KB) is already in shared memory: one
+//     thread copies it there with bulk copies (TMA) on an mbarrier as soon
+//     as the step before has read its copy, so the copy runs under that
+//     step's inverse and this step's forward passes, which leave L2 idle;
+//     the other half is read from L2 (and prefetched into it beside);
+//  3. inverts its component's two limb spectra on groups 0 and 1 (radix 16,
+//     8, 8; each input its own partial plus the peer's, in that order, so
+//     the sum is the same on every run), untwists, rounds each limb and
+//     adds lo + 2^16 hi into its accumulator (the two groups meet at each
+//     word by shared atomics, exact mod 2^32 in any order).
+// The arithmetic is ext_product's: float64, the same key tensor, each limb
+// rounded to its integer; only the order of the row sums and the FFT's
+// radices differ, far inside the rounding margin (the CPU twin,
+// tests/test_torch_kernels32.py _pair_step, holds this order to the exact
+// step).  Slots are swizzled by pswz, under which every access pattern of
+// the passes and the contraction is free of bank conflicts.  Shared memory:
+// the key's half (96 KB), 3 slots (48 KB), the receive slots (64 KB), the
+// accumulator (8 KB).
+namespace pair {
+
+constexpr int PT = 128;                  // threads a transform
+constexpr int GROUPS = LEVEL;            // a block's digit rows
+constexpr int THREADS = PT * GROUPS;     // 384
+constexpr int R = 8;                     // points a thread a pass
+constexpr int SPLIT = M / 16;            // radix-16 butterflies (lane pairs)
+constexpr int KOWN = LEVEL * OUTS / 2;   // key slabs (row, output) in shared
+static_assert(M == PT * R && K1 == 2, "a component a block, 8 points a thread");
+static_assert(NL == GROUPS - 1, "the inverse: a limb a group");
+constexpr uint32_t KBYTES = KOWN * M * sizeof(double2);   // 96 KB
+constexpr size_t SMEM = (KOWN + GROUPS + 2 * NL) * M * sizeof(double2) +
+                        N * sizeof(uint32_t) + sizeof(uint64_t);
+
+__device__ __forceinline__ int pswz(int k) {
+  return k ^ ((k >> 3) & 7) ^ ((k >> 6) & 1);
+}
+
+// the barrier of group g's PT threads (named barrier 1 + g)
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;" ::"r"(g + 1), "n"(PT) : "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// the shared-memory address of p in block `rank` of the cluster
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(out)
+               : "r"(smem_addr(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, double2 v) {
+  asm volatile("st.shared::cluster.v2.f64 [%0], {%1, %2};" ::"r"(addr),
+               "d"(v.x), "d"(v.y)
+               : "memory");
+}
+
+// One thread: the KBYTES of key at src into dst by bulk copies that
+// complete on the mbarrier bar (its next phase), and the rest of the
+// step's rows, KBYTES more at src + KBYTES, prefetched into L2.
+__device__ __forceinline__ void key_copy(double2* dst, const double2* src,
+                                         uint64_t* bar) {
+  constexpr uint32_t SLAB = M * sizeof(double2);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(smem_addr(bar)), "r"(KBYTES) : "memory");
+#pragma unroll
+  for (int s = 0; s < KOWN; ++s)
+    asm volatile(
+        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst + s * M)),
+        "l"(src + s * M), "r"(SLAB), "r"(smem_addr(bar))
+        : "memory");
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(
+                   src + KOWN * M), "r"(KBYTES) : "memory");
+}
+
+__device__ __forceinline__ void key_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{ .reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// v e^{-+2 pi i p/8}, p = 1, 2, 3
+template <bool INV, int P>
+__device__ __forceinline__ double2 w8(double2 v) {
+  constexpr double C = 0.70710678118654752;
+  if constexpr (P == 2) return INV ? make_double2(-v.y, v.x)
+                                   : make_double2(v.y, -v.x);
+  const double s = C * (v.x + v.y), d = C * (v.x - v.y);
+  if constexpr (P == 1) return INV ? make_double2(d, s) : make_double2(s, -d);
+  return INV ? make_double2(-s, d) : make_double2(-d, -s);
+}
+
+__device__ __forceinline__ void dft2(double2& a, double2& b) {
+  const double2 t = csub(a, b);
+  a = cadd(a, b);
+  b = t;
+}
+
+// 8-point DFT as 2 x 4: X[q] ends in x[at8(q)] = x[2 (q % 4) + q / 4].
+template <bool INV>
+__device__ __forceinline__ void dft8(double2 (&x)[8]) {
+  dft4<INV>(x[0], x[2], x[4], x[6]);
+  dft4<INV>(x[1], x[3], x[5], x[7]);
+  x[3] = w8<INV, 1>(x[3]);
+  x[5] = w8<INV, 2>(x[5]);
+  x[7] = w8<INV, 3>(x[7]);
+#pragma unroll
+  for (int k2 = 0; k2 < 4; ++k2) dft2(x[2 * k2], x[2 * k2 + 1]);
+}
+__device__ __forceinline__ int at8(int q) { return 2 * (q & 3) + (q >> 2); }
+
+// A radix-8 pass at stride NS (Stockham): thread j's points j + PT r of
+// src, twiddled by w^{(j mod NS) r M / (8 NS)} (powers of one table entry)
+// and transformed in x.
+template <bool INV, int NS>
+__device__ __forceinline__ void p8_load(const double2* src, const double2* w,
+                                        int j, double2 (&x)[8]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) x[r] = src[pswz(j + PT * r)];
+  if constexpr (NS > 1) {
+    const double2 w1 = tab<INV>(w, (j % NS) * (M / (NS * R)));
+    double2 wr = w1;
+#pragma unroll
+    for (int r = 1; r < R; ++r) {
+      x[r] = cmul(x[r], wr);
+      if (r + 1 < R) wr = cmul(wr, w1);
+    }
+  }
+  dft8<INV>(x);
+}
+// ... its outputs q at (j div NS) 8 NS + (j mod NS) + NS q of dst
+template <int NS>
+__device__ __forceinline__ void p8_store(double2* dst, const double2 (&x)[8],
+                                         int j) {
+  const int base = (j / NS) * NS * R + j % NS;
+#pragma unroll
+  for (int q = 0; q < R; ++q) dst[pswz(base + NS * q)] = x[at8(q)];
+}
+
+// A radix-16 pass at stride NS over the lane pair of butterfly jb: lane
+// half h takes inputs r = h + 2 u (points jb + 64 r of src, plus those of
+// add where ADD), twiddled by w^{(jb mod NS) r M / (16 NS)}, and their
+// 8-point DFT Y_h; the pair swaps half of it (lane ^ 16) and each lane
+// forms X[k + 8 k1] = Y_0[k] + (-1)^k1 W16^k Y_1[k] for its k = i + 4 h:
+// out[i] = X[i + 4 h], out[4 + i] = X[i + 4 h + 8], i < 4.
+template <bool INV, int NS, bool ADD>
+__device__ __forceinline__ void p16_pair(const double2* src,
+                                         const double2* add,
+                                         const double2* w, int jb, int h,
+                                         double2 (&out)[8]) {
+  constexpr double C1 = 0.92387953251128674, S1 = 0.38268343236508978,
+                   C2 = 0.70710678118654752;
+  double2 x[8];
+#pragma unroll
+  for (int u = 0; u < 8; ++u) {
+    const int k = pswz(jb + SPLIT * (h + 2 * u));
+    x[u] = ADD ? cadd(src[k], add[k]) : src[k];
+  }
+  if constexpr (NS > 1) {
+    const double2 w1 = tab<INV>(w, (jb % NS) * (M / (NS * 16)));
+    const double2 w2 = cmul(w1, w1);
+    double2 wr = h ? w1 : make_double2(1.0, 0.0);
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      x[u] = cmul(x[u], wr);
+      if (u < 7) wr = cmul(wr, w2);
+    }
+  }
+  dft8<INV>(x);                 // Y_h[k] in x[at8(k)]
+  const double2 W[4] = {make_double2(1.0, 0.0),
+                        make_double2(C1, INV ? S1 : -S1),
+                        make_double2(C2, INV ? C2 : -C2),
+                        make_double2(S1, INV ? C1 : -C1)};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // lane 0 keeps Y_0[i] (x[2i]) and sends Y_0[i + 4]; lane 1 keeps
+    // Y_1[i + 4] (x[2i + 1]) and sends Y_1[i]
+    const double2 send = h ? x[2 * i] : x[2 * i + 1];
+    const double2 got = make_double2(__shfl_xor_sync(0xffffffffu, send.x, 16),
+                                     __shfl_xor_sync(0xffffffffu, send.y, 16));
+    const double2 a = h ? got : x[2 * i];
+    double2 b = h ? x[2 * i + 1] : got;
+    if (i > 0) b = cmul(b, W[i]);
+    if (h) b = INV ? make_double2(-b.y, b.x) : make_double2(b.y, -b.x);
+    out[i] = cadd(a, b);
+    out[4 + i] = csub(a, b);
+  }
+}
+// ... its outputs at (jb div NS) 16 NS + (jb mod NS) + NS q of dst
+template <int NS>
+__device__ __forceinline__ void p16_store(double2* dst, const double2 (&o)[8],
+                                          int jb, int h) {
+  const int base = (jb / NS) * NS * 16 + jb % NS;
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    dst[pswz(base + NS * ((i & 3) + 4 * h + 8 * (i >> 2)))] = o[i];
+}
+
+// The whole rotation of instance blockIdx.x / 2, component blockIdx.x % 2
+// (the block's rank in its cluster of two); arguments as ext_product's.
+__global__ void __launch_bounds__(THREADS, 1)
+ext_product(const int32_t* __restrict__ cts_ms,
+            const int32_t* __restrict__ luts,
+            const int32_t* __restrict__ lut_idx,
+            const double2* __restrict__ key,
+            const double2* __restrict__ tables, int32_t* __restrict__ acc_out,
+            int B, int n, int base_log) {
+  extern __shared__ __align__(128) double2 sp[];
+  double2* K = sp;                               // [KOWN][M]: key, in order
+  double2* S = K + KOWN * M;                     // [GROUPS][M], swizzled
+  double2* rx = S + GROUPS * M;                  // [2 parity][NL][M]
+  uint32_t* acc = reinterpret_cast<uint32_t*>(rx + 2 * NL * M);   // [N]
+  uint64_t* kbar = reinterpret_cast<uint64_t*>(acc + N);
+  const double2* twist = tables;
+  const double2* w = tables + M;
+  const int tid = threadIdx.x, g = tid / PT, j = tid % PT;
+  const uint32_t c = cluster_rank(), peer = c ^ 1u;
+  const int b = blockIdx.x / 2;
+  // a lane pair of the radix-16 passes: butterfly jb, half h
+  const int jb = (j >> 5) * 16 + (j & 15), h = (j >> 4) & 1;
+  const int shift = 32 - base_log * LEVEL;
+  const uint32_t mask = (1u << base_log) - 1u, half = 1u << (base_log - 1);
+  const int32_t* ct = cts_ms + (size_t)b * (n + 1);
+  // this block's rows of step i's key
+  auto key_rows = [&](int i) {
+    return key + ((size_t)i * ROWS + c * LEVEL) * OUTS * M;
+  };
+
+  if (tid == 0) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(
+                     smem_addr(kbar)), "r"(1) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // acc0 = (0, X^{-b~} lut)
+  for (int m = tid; m < N; m += THREADS) {
+    uint32_t v = 0u;
+    if (c == K1 - 1) {
+      const int r0 = (2 * N - ct[n]) & (2 * N - 1);
+      const int s = (m - r0) & (2 * N - 1);
+      const uint32_t* lut =
+          reinterpret_cast<const uint32_t*>(luts) + (size_t)lut_idx[b] * N;
+      v = s < N ? lut[s] : 0u - lut[s - N];
+    }
+    acc[m] = v;
+  }
+  cluster_sync();          // the peer runs before its memory is written
+  if (tid == 0) key_copy(K, key_rows(0), kbar);
+
+  unsigned long long ticks[CLOCK_COLS] = {}, t_last = 0;
+  auto mark = [&](int p) {
+    if constexpr (kClocks) {
+      if (blockIdx.x == 0 && tid == 0) {
+        const unsigned long long now = clock64();
+        ticks[p] += now - t_last;
+        t_last = now;
+      }
+    }
+  };
+
+  for (int i = 0; i < n; ++i) {
+    if constexpr (kClocks) t_last = clock64();
+    double2* s = S + g * M;
+    // 1. digits of level g at coefficients j + PT q and + M, folded and
+    // twisted, then pass 1 from registers
+    {
+      const int a = ct[i];
+      double2 x[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        double d[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = j + PT * q + M * e;
+          const int sr = (m - a) & (2 * N - 1);
+          const uint32_t v = acc[sr & (N - 1)];
+          uint32_t st = (((sr & N) ? 0u - v : v) - acc[m] +
+                         (1u << (shift - 1))) >> shift;
+          uint32_t mine = 0u;
+#pragma unroll
+          for (int lev = LEVEL - 1; lev >= 0; --lev) {
+            const uint32_t dg = st & mask;
+            const uint32_t sd = dg >= half ? dg - mask - 1u : dg;
+            st = (st - sd) >> base_log;
+            if (lev == g) mine = sd;
+          }
+          d[e] = (double)(int32_t)mine;
+        }
+        x[q] = cmul(make_double2(d[0], d[1]), __ldg(twist + j + PT * q));
+      }
+      dft8<false>(x);
+      p8_store<1>(s, x, j);
+    }
+    group_sync(g);
+    mark(0);
+    // passes 2 and 3 in place: read all, barrier, write all
+    {
+      double2 x[R];
+      p8_load<false, 8>(s, w, j, x);
+      group_sync(g);
+      p8_store<8>(s, x, j);
+    }
+    group_sync(g);
+    {
+      double2 o[8];
+      p16_pair<false, 64, false>(s, nullptr, w, jb, h, o);
+      group_sync(g);
+      p16_store<64>(s, o, jb, h);
+    }
+    __syncthreads();
+    mark(1);
+
+    // 2. the contraction over rows 3c + r: own outputs over slots 0 and 1,
+    // the peer's into its receive slot of this parity; key slab r OUTS + o
+    // from shared memory below KOWN, from L2 above
+    const double2* ki = key_rows(i);
+    double2* rxi = rx + (i & 1) * NL * M;
+    key_wait(kbar, i & 1);
+    for (int jf = tid; jf < M; jf += THREADS) {
+      double2 kv[LEVEL * OUTS];
+#pragma unroll
+      for (int e = KOWN; e < LEVEL * OUTS; ++e) kv[e] = __ldcg(ki + e * M + jf);
+#pragma unroll
+      for (int e = 0; e < KOWN; ++e) kv[e] = K[e * M + jf];
+      const int k = pswz(jf);
+      double2 dv[LEVEL];
+#pragma unroll
+      for (int r = 0; r < LEVEL; ++r) dv[r] = S[r * M + k];
+      double2 y[OUTS];
+#pragma unroll
+      for (int o = 0; o < OUTS; ++o) {
+        y[o] = make_double2(0.0, 0.0);
+#pragma unroll
+        for (int r = 0; r < LEVEL; ++r)
+          y[o] = cfma(dv[r], kv[r * OUTS + o], y[o]);
+      }
+#pragma unroll
+      for (int l = 0; l < NL; ++l) {     // selects: y stays in registers
+        S[l * M + k] = c ? y[NL + l] : y[l];
+        st_peer(peer_addr(rxi + l * M + k, peer), c ? y[l] : y[NL + l]);
+      }
+    }
+    mark(2);
+    cluster_sync();
+    // every thread is past its reads of K: the next step's copy may start
+    if (tid == 0 && i + 1 < n) key_copy(K, key_rows(i + 1), kbar);
+    if constexpr (kClocks) {
+      if (blockIdx.x == 0 && tid == 0) {
+        const unsigned long long now = clock64();
+        ticks[PHASES] += now - t_last;    // the exchange, inside phase 2
+        ticks[2] += now - t_last;
+        t_last = now;
+      }
+    }
+
+    // 3. the inverse of limb g (groups 0 and 1): its own partial plus the
+    // peer's, radix 16, 8, 8 in place, then rounded into the accumulator
+    if (g < NL) {
+      {
+        double2 o[8];
+        p16_pair<true, 1, true>(s, rxi + g * M, w, jb, h, o);
+        group_sync(g);
+        p16_store<1>(s, o, jb, h);
+      }
+      group_sync(g);
+      {
+        double2 x[R];
+        p8_load<true, 16>(s, w, j, x);
+        group_sync(g);
+        p8_store<16>(s, x, j);
+      }
+      group_sync(g);
+      double2 x[R];
+      p8_load<true, PT>(s, w, j, x);
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int m = j + PT * q;
+        const double2 v = cmul(x[at8(q)], tab<true>(twist, m));
+        atomicAdd(acc + m, (uint32_t)__double2ll_rn(v.x * (1.0 / M))
+                               << (LIMB_BITS * g));
+        atomicAdd(acc + m + M, (uint32_t)__double2ll_rn(v.y * (1.0 / M))
+                                   << (LIMB_BITS * g));
+      }
+    }
+    __syncthreads();
+    mark(3);
+  }
+
+  if constexpr (kClocks) {
+    if (blockIdx.x == 0 && tid == 0)
+      for (int p = 0; p < CLOCK_COLS; ++p) phase_clocks[2][p] += ticks[p];
+  }
+  for (int m = tid; m < N; m += THREADS)
+    acc_out[((size_t)b * K1 + c) * N + m] = (int32_t)acc[m];
+}
+
+// The rotation of B instances on B clusters of two blocks.
 int rotate(const int32_t* cts_ms, const int32_t* luts, const int32_t* lut_idx,
            const double2* key, const double2* tables, int32_t* acc, int B,
            int n, int base_log, cudaStream_t stream) {
+  static bool opted = false;
+  if (!opted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        ext_product, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM);
+    if (err != cudaSuccess) return (int)err;
+    opted = true;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, ext_product, cts_ms, luts,
+                                       lut_idx, key, tables, acc, B, n,
+                                       base_log);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+}
+
+}  // namespace pair
+
+// One spectral rotation of B instances on `stream`: on `cluster` = 2 the
+// cluster pair (a pair of blocks an instance; ops/pbs_cuda.py chooses it
+// below half a wave), else T = 1 instance a block while B blocks fit one
+// wave of the card, else 2; returns a cudaError_t.
+int rotate(const int32_t* cts_ms, const int32_t* luts, const int32_t* lut_idx,
+           const double2* key, const double2* tables, int32_t* acc, int B,
+           int n, int base_log, int cluster, cudaStream_t stream) {
+  if (cluster == 2)
+    return pair::rotate(cts_ms, luts, lut_idx, key, tables, acc, B, n,
+                        base_log, stream);
   static bool opted[2] = {false, false};
   const int T = B > kWave ? 2 : 1;
   void (*kern)(const int32_t*, const int32_t*, const int32_t*, const double2*,
@@ -886,30 +1369,37 @@ int fhe_blind_rotate(const int32_t* cts_ms, const int32_t* luts,
 //           ops/pbs_fft.SPECTRAL_PLAN)
 //   tables  [2, N/2] complex128: the twist, the transform's twiddles
 //   acc     [B, k1, N] (output)
+//   cluster 2: the cluster pair, two blocks an instance; 1: ext_product<T>
+//           (ops/pbs_cuda.py's spectral_cluster chooses)
 // Takes N = 2048, k1 = 2, level = 3 and 32 - base_log*level >= 1 only.
 int fhe_blind_rotate_spectral(const int32_t* cts_ms, const int32_t* luts,
                               const int32_t* lut_idx, const double* key,
                               const double* tables, int32_t* acc, int B,
                               int n, int k1, int N, int level, int base_log,
-                              void* stream_ptr) {
-  if (N != spectral::N || k1 != spectral::K1 || level != spectral::LEVEL)
+                              int cluster, void* stream_ptr) {
+  if (N != spectral::N || k1 != spectral::K1 || level != spectral::LEVEL ||
+      (cluster != 1 && cluster != 2))
     return (int)cudaErrorInvalidValue;
   return spectral::rotate(cts_ms, luts, lut_idx,
                           reinterpret_cast<const double2*>(key),
                           reinterpret_cast<const double2*>(tables), acc, B, n,
-                          base_log, static_cast<cudaStream_t>(stream_ptr));
+                          base_log, cluster,
+                          static_cast<cudaStream_t>(stream_ptr));
 }
 
-// The phase clocks of the spectral rotation, [2][4] (T = 1, then T = 2;
-// digits and pass 1, forward passes 2 and 3, contraction, inverse): clock64()
-// ticks of block 0's thread 0, summed over the steps of every launch since
-// the last call, copied to out and set to zero.  Zeros unless the library
-// was built with -DFHE_SPECTRAL_CLOCKS.  Synchronises the device.
+// The phase clocks of the spectral rotation, [3][5] (rows: T = 1, T = 2,
+// the cluster pair; columns: digits and pass 1, forward passes 2 and 3,
+// contraction, inverse, and the pair's exchange, part of its contraction):
+// clock64() ticks of block 0's thread 0, summed over the steps of every
+// launch since the last call, copied to out and set to zero.  Zeros unless
+// the library was built with -DFHE_SPECTRAL_CLOCKS.  Synchronises the
+// device.
 int fhe_spectral_phase_clocks(unsigned long long* out) {
   cudaError_t err = cudaMemcpyFromSymbol(out, spectral::phase_clocks,
                                          sizeof(spectral::phase_clocks));
   if (err != cudaSuccess) return (int)err;
-  static const unsigned long long zero[2][spectral::PHASES] = {};
+  static const unsigned long long
+      zero[spectral::CLOCK_ROWS][spectral::CLOCK_COLS] = {};
   return (int)cudaMemcpyToSymbol(spectral::phase_clocks, zero, sizeof(zero));
 }
 

@@ -34,7 +34,9 @@ initial X^{-b~} rotation built on the device, or one CMUX stage at a time.
                               (``_fused_blindrot64_bg_kernel``)
 
 ``rotation_steps()`` counts the CMUX steps x rows of the 32-bit fused
-rotations by the path they took, ``spectral`` or ``limb``, and
+rotations by the path they took, ``spectral`` or ``limb`` (and, of the
+spectral ones, ``spectral_pair``: those on the cluster pair that
+``spectral_cluster`` chooses for narrow batches), and
 ``rotation_launches()`` their launches by the kernel each launched.
 
 Every wrapper takes its plain PyTorch version (``ops/pbs.py``,
@@ -151,7 +153,7 @@ def _load():
         signatures = {   # (pointers, ints), then the stream
             "fhe_blind_rotate": (6, 6),
             "fhe_blind_rotate_bg": (6, 7),
-            "fhe_blind_rotate_spectral": (6, 6),
+            "fhe_blind_rotate_spectral": (6, 7),
             "fhe_stage1_digits": (3, 5),
             "fhe_external_product_rows": (4, 4),
             "fhe_blind_rotate64": (6, 10),
@@ -252,25 +254,43 @@ def _launch(entry: str, params: Params, bsk, luts, lut_idx, cts_ms,
     return acc
 
 
-_ROTATION_STEPS = {"spectral": 0, "limb": 0}
-_ROTATION_LAUNCHES = {"fhe_blind_rotate_spectral": 0, "fhe_blind_rotate": 0,
-                      "fhe_blind_rotate_bg": 0}
+_ROTATION_STEPS = {"spectral": 0, "spectral_pair": 0, "limb": 0}
+_ROTATION_LAUNCHES = {"fhe_blind_rotate_spectral": 0, "spectral_pair": 0,
+                      "fhe_blind_rotate": 0, "fhe_blind_rotate_bg": 0}
 
 
 def rotation_steps() -> dict:
-    """{"spectral": n, "limb": n}: CMUX steps x rows of the 32-bit fused
-    rotations (``blind_rotate_fused``, ``blind_rotate_fused_bg``) on the
-    card, by the path each took (what a CUDA graph replays is not
-    counted; neither backend is captured by default)."""
+    """{"spectral": n, "spectral_pair": n, "limb": n}: CMUX steps x rows of
+    the 32-bit fused rotations (``blind_rotate_fused``,
+    ``blind_rotate_fused_bg``) on the card, by the path each took;
+    ``spectral_pair`` is the part of ``spectral`` that ran on the cluster
+    pair (what a CUDA graph replays is not counted; neither backend is
+    captured by default)."""
     return dict(_ROTATION_STEPS)
 
 
 def rotation_launches() -> dict:
     """{entry point: launches} of the same rotations, by the kernel each
-    launched: the spectral one, or the limb GEMM of ``blind_rotate_fused``
-    or of ``blind_rotate_fused_bg``.  Kept apart from ``launch_counts``,
-    whose wrappers count either."""
+    launched: the spectral one (of which ``spectral_pair`` counts the
+    launches on the cluster pair), or the limb GEMM of
+    ``blind_rotate_fused`` or of ``blind_rotate_fused_bg``.  Kept apart
+    from ``launch_counts``, whose wrappers count either."""
     return dict(_ROTATION_LAUNCHES)
+
+
+def spectral_cluster(B: int, sms: int) -> int:
+    """Blocks an instance of the spectral rotation of B rows on a card of
+    ``sms`` SMs: 2, the cluster pair (``spectral::pair``, a GLWE component
+    a block, on two SMs), while the pairs fit one wave (2 B <= sms: B <= 66
+    on an H100 SXM), else 1 (``spectral::ext_product<T>``, which itself
+    takes T = 2 instances a block above one wave)."""
+    return 2 if 2 * B <= sms else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """The SM count of a CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def spectral_supported(params: Params) -> bool:
@@ -290,10 +310,11 @@ def _spectral_tables(N: int, device: torch.device) -> torch.Tensor:
 
 
 def _rotate_spectral(params: Params, spec: torch.Tensor, luts, lut_idx,
-                     cts_ms) -> torch.Tensor:
+                     cts_ms, cluster: "int | None" = None) -> torch.Tensor:
     """One launch of the spectral rotation on the key spectrum ``spec``
     [n, (k+1)l, k+1, 2, N/2] complex128 (``pbs_fft.prepare_bsk_fft`` on
-    ``pbs_fft.SPECTRAL_PLAN``)."""
+    ``pbs_fft.SPECTRAL_PLAN``), on ``cluster`` blocks an instance (None:
+    ``spectral_cluster``'s choice for the device)."""
     from fhe_regex_tpu_torch.ops.pbs_fft import C128, SPECTRAL_PLAN
 
     if not spectral_supported(params):
@@ -305,29 +326,38 @@ def _rotate_spectral(params: Params, spec: torch.Tensor, luts, lut_idx,
     _check("spec", spec,
            (n, k1 * params.pbs_level, k1, len(SPECTRAL_PLAN), N // 2), C128,
            dev)
+    if cluster is None:
+        cluster = spectral_cluster(B, _sm_count(dev))
     acc = torch.empty((B, k1, N), device=dev, dtype=torch.int32)
     _call("fhe_blind_rotate_spectral", dev, cts_ms.data_ptr(),
           luts.data_ptr(), lut_idx.data_ptr(), spec.data_ptr(),
           _spectral_tables(N, dev).data_ptr(), acc.data_ptr(), B, n, k1, N,
-          params.pbs_level, params.pbs_base_log)
+          params.pbs_level, params.pbs_base_log, cluster)
     return acc
 
 
 def _rotate32(entry: str, params: Params, bsk, luts, lut_idx, cts_ms,
               tb, spec) -> torch.Tensor:
-    """The spectral rotation where ``spec`` is given, else the limb GEMM's
-    ``entry``; counts the launch and the steps by path.  No width goes to
-    the limb GEMM when a spectrum is given: the spectral rotation is the
-    faster at every batch from 8 to 1024 rows (``chip_smoke.py`` phase 18
-    sweeps both)."""
+    """The spectral rotation where ``spec`` is given (on the cluster pair
+    where ``spectral_cluster`` chooses it), else the limb GEMM's ``entry``;
+    counts the launch and the steps by path.  No width goes to the limb
+    GEMM when a spectrum is given: the spectral rotation is the faster at
+    every batch from 8 to 1024 rows (``chip_smoke.py`` phase 18 sweeps
+    both)."""
+    B = cts_ms.shape[0]
+    steps = params.lwe_dimension * B
     if spec is not None:
-        acc = _rotate_spectral(params, spec, luts, lut_idx, cts_ms)
+        cluster = spectral_cluster(B, _sm_count(cts_ms.device))
+        acc = _rotate_spectral(params, spec, luts, lut_idx, cts_ms, cluster)
         entry, path = "fhe_blind_rotate_spectral", "spectral"
+        if cluster == 2:
+            _ROTATION_LAUNCHES["spectral_pair"] += 1
+            _ROTATION_STEPS["spectral_pair"] += steps
     else:
         acc = _launch(entry, params, bsk, luts, lut_idx, cts_ms, tb)
         path = "limb"
     _ROTATION_LAUNCHES[entry] += 1
-    _ROTATION_STEPS[path] += params.lwe_dimension * cts_ms.shape[0]
+    _ROTATION_STEPS[path] += steps
     return acc
 
 

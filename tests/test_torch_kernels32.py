@@ -574,14 +574,41 @@ def test_library_path_hashes_the_shared_header(tmp_path, monkeypatch):
 # limb spectra (SPECTRAL_PLAN (16, 16), the kernel's; PLAN (16, 8, 8), the
 # ``fft`` backend's, is held too), inverse, per-limb rounding,
 # recombination mod 2^32.  The twin must equal the exact step bit for bit.
+# _pair_step is the twin of the cluster pair (spectral::pair), which
+# narrow batches run: a component's rows a block, radix 8, 8, 16 on pswz
+# slots, partial sums of every output exchanged between the two blocks.
 
 #: (kernel's plan, fft backend's plan), the limb plans the twin is run on
 PLANS = [(16, 16), (16, 8, 8)]
+#: the twins a step is held with: the one-block kernel's on either plan,
+#: and the cluster pair's (on SPECTRAL_PLAN, the only plan it runs)
+TWINS = PLANS + ["pair"]
+
+
+def _twin_plan(twin) -> tuple:
+    return (16, 16) if twin == "pair" else twin
 
 
 def _swz(k: torch.Tensor) -> torch.Tensor:
     """The kernel's shared-memory slot of point k (bank-conflict swizzle)."""
     return k ^ ((k >> 4) & 7)
+
+
+def _pswz(k: torch.Tensor) -> torch.Tensor:
+    """The cluster pair's slot of point k (``pair::pswz``)."""
+    return k ^ ((k >> 3) & 7) ^ ((k >> 6) & 1)
+
+
+def _pair_radices(M: int) -> tuple:
+    """The cluster pair's forward radices: 8 while more than 16 points are
+    left, then 16 ((8, 8, 16) at M = 1024); its inverse runs them
+    backwards."""
+    out = []
+    while M > 16:
+        out.append(8)
+        M //= 8
+    assert M == 16, "the pair's transforms end in radix 16"
+    return tuple(out) + (16,)
 
 
 def _radices(M: int) -> tuple:
@@ -601,11 +628,24 @@ def _dft_matrix(R: int, inverse: bool) -> torch.Tensor:
                      / R)
 
 
-def _dft(v: torch.Tensor, inverse: bool) -> torch.Tensor:
+def _dft16_pair(v: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """The 16-point DFTs over axis -2 of v [..., 16, T] as the cluster
+    pair's lane pair computes them: lane h the 8-point DFT Y_h of inputs
+    h + 2 u, then X[k + 8 k1] = Y_0[k] + (-1)^k1 W16^k Y_1[k]."""
+    Y0 = _dft(v[..., 0::2, :], inverse)
+    Y1 = _dft(v[..., 1::2, :], inverse) * _dft_matrix(16, inverse)[1, :8,
+                                                                   None]
+    return torch.cat([Y0 + Y1, Y0 - Y1], dim=-2)
+
+
+def _dft(v: torch.Tensor, inverse: bool, pair: bool = False) -> torch.Tensor:
     """The R-point DFTs over axis -2 of v [..., R, T].  At R = 16 as the
     kernel's dft16: a 4 x 4, point n1 + 4 n2, whose output q lands in
-    register 4 (q mod 4) + q div 4 (at16) and is read back from there."""
+    register 4 (q mod 4) + q div 4 (at16) and is read back from there; on
+    the cluster pair (``pair``) as its lane pair's 2 x 8."""
     R = v.shape[-2]
+    if R == 16 and pair:
+        return _dft16_pair(v, inverse)
     if R != 16:
         return torch.einsum("qr,...rt->...qt", _dft_matrix(R, inverse), v)
     F4 = _dft_matrix(4, inverse)
@@ -617,27 +657,33 @@ def _dft(v: torch.Tensor, inverse: bool) -> torch.Tensor:
     return regs[..., 4 * (q & 3) + (q >> 2), :]
 
 
-def _stockham(buf: torch.Tensor, w: torch.Tensor,
-              inverse: bool = False) -> torch.Tensor:
+def _stockham(buf: torch.Tensor, w: torch.Tensor, inverse: bool = False,
+              pair: bool = False) -> torch.Tensor:
     """The kernel's unnormalised transform of every slot of buf [..., M],
     point k stored at _swz(k), natural order in and out: pass p of radix R
     reads x[j + r M/R] for j < M/R, multiplies it by v^r, v = w[(j mod Ns)
     M/(Ns R)] (Ns the product of the earlier radices; v^r by repeated
     multiplication, as the kernel takes it, conjugated for the inverse),
-    and writes output q to (j div Ns) Ns R + (j mod Ns) + q Ns."""
+    and writes output q to (j div Ns) Ns R + (j mod Ns) + q Ns.  On the
+    cluster pair (``pair``): its radices (``_pair_radices``, backwards for
+    the inverse), its slots (``_pswz``) and its radix-16 pass."""
     M = buf.shape[-1]
     tw = torch.conj(w) if inverse else w
+    if pair:
+        swz, radices = _pswz, _pair_radices(M)[::-1 if inverse else 1]
+    else:
+        swz, radices = _swz, _radices(M)
     Ns = 1
-    for R in _radices(M):
+    for R in radices:
         T = M // R
         j, r = torch.arange(T), torch.arange(R)
-        v = buf[..., _swz(j[None, :] + r[:, None] * T)]        # [..., R, T]
+        v = buf[..., swz(j[None, :] + r[:, None] * T)]         # [..., R, T]
         base = tw[(j % Ns) * (M // (Ns * R))]
         powers = torch.cumprod(base.expand(R - 1, T), dim=0)   # v^1 .. v^(R-1)
         v = torch.cat([v[..., :1, :], v[..., 1:, :] * powers], dim=-2)
         buf = torch.empty_like(buf)
         dest = ((j // Ns) * Ns * R + j % Ns)[None, :] + r[:, None] * Ns
-        buf[..., _swz(dest)] = _dft(v, inverse)
+        buf[..., swz(dest)] = _dft(v, inverse, pair)
         Ns *= R
     return buf
 
@@ -656,18 +702,37 @@ def _spectral_step(digits: torch.Tensor, spec_i: torch.Tensor,
     limb to its integer, scale it by 2^weight and add it to acc mod 2^32."""
     from fhe_regex_tpu_torch.ops import pbs_fft
 
-    N = digits.shape[-1]
-    M = N // 2
-    tw, w = pbs_fft.spectral_tables(N)
-    slot = _swz(torch.arange(M))
+    tw, w = pbs_fft.spectral_tables(digits.shape[-1])
+    D = _forward(digits, w, tw, pair=False)                   # [B, rows, M]
+    P = torch.einsum("brm,rclm->bclm", D, spec_i)             # [B, k1, L, M]
+    return _inverse_into(P, acc, w, tw, plan, pair=False)
+
+
+def _forward(digits: torch.Tensor, w, tw, pair: bool) -> torch.Tensor:
+    """Each digit row [..., N] folded, twisted and transformed by the
+    one-block kernel's passes or the pair's, in natural order [..., M]."""
+    M = digits.shape[-1] // 2
+    slot = (_pswz if pair else _swz)(torch.arange(M))
     d = digits.to(torch.float64)
     buf = torch.empty(d.shape[:-1] + (M,), dtype=torch.complex128)
     buf[..., slot] = torch.complex(d[..., :M], d[..., M:]) * tw
-    D = _stockham(buf, w)[..., slot]                          # [B, rows, M]
-    P = torch.einsum("brm,rclm->bclm", D, spec_i)             # [B, k1, L, M]
+    return _stockham(buf, w, pair=pair)[..., slot]
+
+
+def _inverse_into(P: torch.Tensor, acc: torch.Tensor, w, tw, plan: tuple,
+                  pair: bool):
+    """The output spectra P [B, k1, L, M] inverted, untwisted and divided
+    by M; each limb rounded to its integer, scaled by 2^weight and added to
+    acc mod 2^32 -> (the new acc, the largest distance of a limb's value
+    from its integer)."""
+    from fhe_regex_tpu_torch.ops import pbs_fft
+
+    M = P.shape[-1]
+    slot = (_pswz if pair else _swz)(torch.arange(M))
     buf = torch.empty_like(P)
     buf[..., slot] = P
-    y = _stockham(buf, w, inverse=True)[..., slot] * torch.conj(tw) * (1 / M)
+    y = (_stockham(buf, w, inverse=True, pair=pair)[..., slot]
+         * torch.conj(tw) * (1 / M))
     vals = torch.cat([y.real, y.imag], dim=-1)                # [B, k1, L, N]
     r = torch.round(vals)
     weights = torch.tensor([1 << s for s in pbs_fft.plan_weights(plan)],
@@ -675,6 +740,29 @@ def _spectral_step(digits: torch.Tensor, spec_i: torch.Tensor,
     out = (r.to(torch.int64) * weights).sum(dim=2)
     return (tpbs.wrap_i32(acc.to(torch.int64) + out),
             float((vals - r).abs().max()))
+
+
+def _pair_step(digits: torch.Tensor, spec_i: torch.Tensor,
+               acc: torch.Tensor):
+    """One CMUX step as the cluster pair computes it (``spectral::pair``,
+    k + 1 = 2 components, the key on SPECTRAL_PLAN): block c transforms
+    the l digit rows of its component, contracts them with those rows of
+    the key into partial spectra of every output (component, limb), and
+    inverts, for its own component, its own partial plus the peer's, in
+    that order -> (the new acc, the largest distance of a limb's value
+    from its integer)."""
+    from fhe_regex_tpu_torch.ops import pbs_fft
+
+    k1 = acc.shape[1]
+    assert k1 == 2, "a component a block of the pair"
+    l = digits.shape[1] // k1
+    tw, w = pbs_fft.spectral_tables(digits.shape[-1])
+    D = _forward(digits, w, tw, pair=True)                    # [B, rows, M]
+    part = [torch.einsum("brm,rclm->bclm", D[:, c * l:(c + 1) * l],
+                         spec_i[c * l:(c + 1) * l]) for c in range(k1)]
+    P = torch.stack([part[c][:, c] + part[1 - c][:, c] for c in range(k1)],
+                    dim=1)                                    # [B, k1, L, M]
+    return _inverse_into(P, acc, w, tw, pbs_fft.SPECTRAL_PLAN, pair=True)
 
 
 def _jax_step(digits: np.ndarray, ggsw: np.ndarray, acc: np.ndarray):
@@ -687,15 +775,20 @@ def _jax_step(digits: np.ndarray, ggsw: np.ndarray, acc: np.ndarray):
 
 
 def _spectral_case(P, ggsw: np.ndarray, digits: np.ndarray,
-                   acc: np.ndarray, plan: tuple, jax_too: bool = True) -> float:
-    """The twin on the limb plan ``plan`` against the port's exact step
-    (and the JAX reference); returns the largest distance of a limb from
-    its integer."""
+                   acc: np.ndarray, twin, jax_too: bool = True) -> float:
+    """The twin ``twin`` (a limb plan of the one-block kernel, or "pair")
+    against the port's exact step (and the JAX reference); returns the
+    largest distance of a limb from its integer."""
     from fhe_regex_tpu_torch.ops import pbs_fft
 
     tp = _port_params(P) if hasattr(P, "name") else P
+    plan = _twin_plan(twin)
     spec = pbs_fft.prepare_bsk_fft(tp, ggsw[None], plan=plan)[0]
-    got, dist = _spectral_step(torch.from_numpy(digits), spec, _t(acc), plan)
+    if twin == "pair":
+        got, dist = _pair_step(torch.from_numpy(digits), spec, _t(acc))
+    else:
+        got, dist = _spectral_step(torch.from_numpy(digits), spec, _t(acc),
+                                   plan)
     want = tpbs.external_product_step(tp, torch.from_numpy(digits),
                                       _t(ggsw), _t(acc))
     assert torch.equal(got, want)
@@ -710,13 +803,13 @@ def _digits(rng, B, rows, N, half=64):
     return d
 
 
-@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("plan", TWINS)
 @pytest.mark.parametrize("which", ["keys", "noisy_keys"])
 def test_spectral_twin_equals_exact_step(request, which, plan):
     """At TEST_PARAMS / TEST_PARAMS_NOISY, on the first GGSW of the real
-    bootstrap key, random digits and accumulators, on either limb plan:
-    bit-equal to ``ops.pbs.external_product_step`` and to the JAX
-    reference."""
+    bootstrap key, random digits and accumulators, on either limb plan and
+    on the cluster pair: bit-equal to ``ops.pbs.external_product_step`` and
+    to the JAX reference."""
     P = TEST_PARAMS if which == "keys" else TEST_PARAMS_NOISY
     sk = request.getfixturevalue(which)[1]
     N, k1 = P.polynomial_size, P.glwe_dimension + 1
@@ -730,11 +823,11 @@ def test_spectral_twin_equals_exact_step(request, which, plan):
     assert dist < 1 / 8
 
 
-@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("plan", TWINS)
 def test_spectral_twin_production_step(plan):
     """One step at the production set (N = 2048, l = 3, base 2^7) on
-    either limb plan: random key words, digits and accumulators; bit-equal
-    to both references."""
+    either limb plan and on the cluster pair: random key words, digits and
+    accumulators; bit-equal to both references."""
     from fhe_regex_tpu_torch.params import get_params
 
     P = get_params("TPU_MESSAGE_2_CARRY_2")
@@ -759,27 +852,29 @@ WORST_WORDS = {
 }
 
 
-@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("plan", TWINS)
 @pytest.mark.parametrize("sign", [-1, 1])
 def test_spectral_twin_worst_case_margin(sign, plan):
     """The largest limb values the production set can give: every digit at
     -64 (or 64), every key word with each limb of the plan at its extreme
-    ((16, 16): -2^15 and -2^15, the word 0x7FFF8000; (16, 8, 8): -2^15,
-    -2^7, -2^7; the top limb's carry of +1 out of bit 32 checked), so
-    that coefficient N-1 of every limb sums 64 * 2^b * N * (k+1)l with one
-    sign.  Exact still, and each limb's value lies within 1/8 of its
-    integer (printed)."""
+    ((16, 16), the one-block kernel's and the pair's: -2^15 and -2^15, the
+    word 0x7FFF8000; (16, 8, 8): -2^15, -2^7, -2^7; the top limb's carry of
+    +1 out of bit 32 checked), so that coefficient N-1 of every limb sums
+    64 * 2^b * N * (k+1)l with one sign.  Exact still, and each limb's
+    value lies within 1/8 of its integer (printed), the pair's, whose sums
+    run in another order, within 1e-4."""
     from fhe_regex_tpu_torch.ops import pbs_fft
     from fhe_regex_tpu_torch.params import get_params
 
     P = get_params("TPU_MESSAGE_2_CARRY_2")
     N, k1 = P.polynomial_size, P.glwe_dimension + 1
     rows = k1 * P.pbs_level
-    word, extremes = WORST_WORDS[plan]
+    word, extremes = WORST_WORDS[_twin_plan(plan)]
     as_i32 = torch.from_numpy(np.array([word], np.uint32).view(np.int32))
-    limbs = pbs_fft._limbs_signed(as_i32, plan)
+    limbs = pbs_fft._limbs_signed(as_i32, _twin_plan(plan))
     assert limbs.ravel().tolist() == extremes
-    weights = torch.tensor([1 << w for w in pbs_fft.plan_weights(plan)])
+    weights = torch.tensor([1 << w for w in
+                            pbs_fft.plan_weights(_twin_plan(plan))])
     carry = (as_i32.to(torch.int64) - (limbs[:, 0] * weights).sum()) >> 32
     assert carry.item() == 1
     ggsw = np.full((rows, k1, N), word, np.uint32)
@@ -788,7 +883,7 @@ def test_spectral_twin_worst_case_margin(sign, plan):
     dist = _spectral_case(P, ggsw, digits, acc, plan, jax_too=False)
     print(f"worst case {plan}, digits {64 * sign}: largest distance of a "
           f"limb from its integer {dist:.3g}")
-    assert dist < 1 / 8
+    assert dist < (1e-4 if plan == "pair" else 1 / 8)
 
 
 @pytest.mark.parametrize("M", [128, 1024])
@@ -814,19 +909,84 @@ def test_stockham_transform_is_the_dft(M):
     assert float((inv - torch.fft.ifft(x) * M).abs().max()) < 1e-10
 
 
-@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("M", [128, 1024])
+def test_pair_transform_is_the_dft(M):
+    """The cluster pair's transform (radices (8, 16) at M = 128, (8, 8,
+    16) at 1024, backwards for the inverse, the radix-16 pass as its lane
+    pair's 2 x 8, slots at pswz(k)) is the DFT in natural order, forward
+    and (unnormalised) inverse; pswz is a permutation of every slot."""
+    from fhe_regex_tpu_torch.ops import pbs_fft
+
+    assert _pair_radices(1024) == (8, 8, 16)
+    assert sorted(_pswz(torch.arange(M)).tolist()) == list(range(M))
+    rng = np.random.default_rng(M + 1)
+    x = torch.from_numpy(rng.standard_normal((3, M))
+                         + 1j * rng.standard_normal((3, M)))
+    w = pbs_fft.spectral_tables(2 * M)[1]
+    slot = _pswz(torch.arange(M))
+    buf = torch.empty_like(x)
+    buf[..., slot] = x
+    fwd = _stockham(buf, w, pair=True)[..., slot]
+    inv = _stockham(buf, w, inverse=True, pair=True)[..., slot]
+    assert float((fwd - torch.fft.fft(x)).abs().max()) < 1e-10
+    assert float((inv - torch.fft.ifft(x) * M).abs().max()) < 1e-10
+
+
+def _pair_accesses():
+    """{access: [instruction][thread] point} of every shared-memory access
+    of a step of ``pair::ext_product`` on a transform's slot, for the 128
+    threads j of a group (the radix-16 passes' lane pair: butterfly jb =
+    16 (j div 32) + j mod 16, half h = bit 4 of j) and the contraction's
+    first 384 frequencies."""
+    M, PT = 1024, 128
+    j = np.arange(PT)
+    jb, h = (j >> 5) * 16 + (j & 15), (j >> 4) & 1
+
+    def p8_store(NS):
+        return [(j // NS) * NS * 8 + j % NS + NS * q for q in range(8)]
+
+    def p16_store(NS):
+        return [(jb // NS) * NS * 16 + jb % NS
+                + NS * ((i & 3) + 4 * h + 8 * (i >> 2)) for i in range(8)]
+
+    p8_load = [j + PT * r for r in range(8)]
+    return {"pass 1 store": p8_store(1), "radix-8 load": p8_load,
+            "forward pass 2 store": p8_store(8),
+            "radix-16 load": [jb + 64 * (h + 2 * u) for u in range(8)],
+            "forward pass 3 store": p16_store(64),
+            "inverse pass 1 store": p16_store(1),
+            "inverse pass 2 store": p8_store(16),
+            "contraction": [np.arange(3 * PT) % M]}
+
+
+@pytest.mark.parametrize("access", list(_pair_accesses()))
+def test_pair_slots_are_free_of_bank_conflicts(access):
+    """Every 16-byte access of the pair's passes and contraction, read at
+    pswz(k): each quarter-warp's 8 lanes hit 8 distinct 16-byte bank groups
+    (slot mod 8), so no access is replayed."""
+    for pts in _pair_accesses()[access]:
+        slots = _pswz(torch.from_numpy(np.asarray(pts))).numpy()
+        assert sorted(set(pts.tolist())) == sorted(pts.tolist())
+        for q in range(0, len(slots), 8):
+            assert len(set((slots[q:q + 8] % 8).tolist())) == 8, (access, q)
+
+
+@pytest.mark.parametrize("plan", TWINS)
 def test_spectral_twin_rotation_equals_blind_rotate(noisy_keys, plan):
     """A whole rotation of twin steps (``stage1_digits``, then the spectral
-    step on the key's spectrum, on either limb plan) equals the plain
-    ``blind_rotate``."""
+    step on the key's spectrum, on either limb plan or on the cluster
+    pair) equals the plain ``blind_rotate``."""
     from fhe_regex_tpu_torch.ops import pbs_fft
 
     params, bsk, luts, idx, ms = _rotation_args(noisy_keys, 6, seed=3)
-    spec = pbs_fft.prepare_bsk_fft(params, bsk, plan=plan)
+    spec = pbs_fft.prepare_bsk_fft(params, bsk, plan=_twin_plan(plan))
     acc = tpbs.init_accumulator(params, luts, idx, ms)
     for i in range(params.lwe_dimension):
         d = tpbs.stage1_digits(params, acc, ms[:, i])
-        acc, dist = _spectral_step(d, spec[i], acc, plan)
+        if plan == "pair":
+            acc, dist = _pair_step(d, spec[i], acc)
+        else:
+            acc, dist = _spectral_step(d, spec[i], acc, plan)
         assert dist < 1 / 8
     assert torch.equal(acc, tpbs.blind_rotate(params, bsk, luts, idx, ms))
 
@@ -909,13 +1069,16 @@ def test_spectral_kernels_carry_rotation_names():
     names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
                        r"\s*)?(\w+)\s*\(", src)
     assert {"acc_init", "stage1", "ext_product"} <= set(names)
-    assert names.count("ext_product") == 2        # limb GEMM and spectral
+    assert names.count("ext_product") == 3    # limb GEMM, spectral, the pair
     for name in names:
         assert ROTATION_KERNELS.search(name), name
     for traced in ("void (anonymous namespace)::spectral::ext_product<2>("
                    "int const*, int const*, int const*, double2 const*, "
                    "double2 const*, int*, int, int, int)",
-                   "(anonymous namespace)::spectral::ext_product<1>"):
+                   "(anonymous namespace)::spectral::ext_product<1>",
+                   "void (anonymous namespace)::spectral::pair::ext_product("
+                   "int const*, int const*, int const*, double2 const*, "
+                   "double2 const*, int*, int, int, int)"):
         assert ROTATION_KERNELS.search(traced)
 
 
@@ -930,6 +1093,7 @@ def test_fused_rotations_count_steps_by_path(monkeypatch, noisy_keys):
     calls = []
     monkeypatch.setattr(pbs_cuda, "_on_cuda", lambda what, t: True)
     monkeypatch.setattr(pbs_cuda, "_check32", lambda *a: None)
+    monkeypatch.setattr(pbs_cuda, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(pbs_cuda, "_rotate_spectral",
                         lambda *a: calls.append("spectral") or "s")
     monkeypatch.setattr(pbs_cuda, "_launch",
@@ -944,14 +1108,62 @@ def test_fused_rotations_count_steps_by_path(monkeypatch, noisy_keys):
         assert fn(*args) == "l"
         after = pbs_cuda.rotation_steps()
         assert after == {"spectral": before["spectral"] + steps,
+                         "spectral_pair": before["spectral_pair"] + steps,
                          "limb": before["limb"] + steps}
         launches[limb] += 1
         launches["fhe_blind_rotate_spectral"] += 1
+        launches["spectral_pair"] += 1            # B = 8: on the pair
         assert pbs_cuda.rotation_launches() == launches
     assert calls == ["spectral", "fhe_blind_rotate", "spectral",
                      "fhe_blind_rotate_bg"]
     assert set(pbs_cuda.rotation_launches()).isdisjoint(
         pbs_cuda.launch_counts())
+
+
+@pytest.mark.parametrize("sms, pair, one", [
+    (132, (1, 8, 16, 32, 64, 66), (67, 132, 133, 256, 1024)),   # H100 SXM
+    (114, (1, 8, 56, 57), (58, 64, 66, 114))])                  # H100 PCIe
+def test_spectral_cluster_rule(sms, pair, one):
+    """``spectral_cluster`` gives a batch the cluster pair (2 blocks an
+    instance) while its pairs fit one wave of the card's SMs, 2 B <= SMs,
+    and one block an instance above."""
+    assert [pbs_cuda.spectral_cluster(B, sms) for B in pair] == [2] * len(pair)
+    assert [pbs_cuda.spectral_cluster(B, sms) for B in one] == [1] * len(one)
+
+
+def test_pair_rotations_count_under_their_own_keys(monkeypatch, noisy_keys):
+    """On the CUDA route (faked here, 132 SMs) a spectral rotation of B =
+    66 rows is launched on the cluster pair and one of 67 on one block an
+    instance, both by ``blind_rotate_fused`` and ``blind_rotate_fused_bg``;
+    ``rotation_steps`` counts the pair's n x B steps under
+    ``spectral_pair`` as well as ``spectral``, and ``rotation_launches``
+    its launch under ``spectral_pair`` as well as the entry's."""
+    seen = []
+    monkeypatch.setattr(pbs_cuda, "_on_cuda", lambda what, t: True)
+    monkeypatch.setattr(pbs_cuda, "_check32", lambda *a: None)
+    monkeypatch.setattr(pbs_cuda, "_sm_count", lambda dev: 132)
+    monkeypatch.setattr(pbs_cuda, "_rotate_spectral",
+                        lambda *a: seen.append(a[-1]) or "s")
+    spec = torch.zeros(1)
+    params, bsk, luts, _, _ = _rotation_args(noisy_keys, 1, seed=6)
+    for fn in (pbs_cuda.blind_rotate_fused, pbs_cuda.blind_rotate_fused_bg):
+        for B, cluster in ((66, 2), (67, 1)):
+            args = (params, bsk, luts, torch.zeros(B, dtype=torch.int32),
+                    torch.zeros((B, params.lwe_dimension + 1),
+                                dtype=torch.int32))
+            steps = params.lwe_dimension * B
+            before = pbs_cuda.rotation_steps()
+            launches = pbs_cuda.rotation_launches()
+            assert fn(*args, spec=spec) == "s"
+            assert seen[-1] == cluster
+            pair = steps if cluster == 2 else 0
+            assert pbs_cuda.rotation_steps() == {
+                "spectral": before["spectral"] + steps,
+                "spectral_pair": before["spectral_pair"] + pair,
+                "limb": before["limb"]}
+            launches["fhe_blind_rotate_spectral"] += 1
+            launches["spectral_pair"] += cluster == 2
+            assert pbs_cuda.rotation_launches() == launches
 
 
 def test_spectral_bg_takes_no_batch_block(monkeypatch, noisy_keys):
@@ -960,6 +1172,7 @@ def test_spectral_bg_takes_no_batch_block(monkeypatch, noisy_keys):
     explicit ``tb``; without it the block rules stand."""
     monkeypatch.setattr(pbs_cuda, "_on_cuda", lambda what, t: True)
     monkeypatch.setattr(pbs_cuda, "_check32", lambda *a: None)
+    monkeypatch.setattr(pbs_cuda, "_sm_count", lambda dev: 132)
     monkeypatch.setattr(pbs_cuda, "_rotate_spectral", lambda *a: "s")
     args = _rotation_args(noisy_keys, 4, seed=5)
     spec = torch.zeros(1)

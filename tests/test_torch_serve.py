@@ -204,7 +204,8 @@ def test_stats_rotation_steps(both, servers):
     _post(turl, "/match", {"pattern": "/ab/", "ct": one})
     stats = _get(turl, "/stats")
     assert stats["rotation_steps"] == pbs_cuda.rotation_steps()
-    assert set(stats["rotation_steps"]) == {"spectral", "limb"}
+    assert set(stats["rotation_steps"]) == {"spectral", "spectral_pair",
+                                            "limb"}
     assert not set(stats["rotation_steps"]) & set(stats["kernel_launches"])
 
 
